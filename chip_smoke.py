@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernel from ``stylerenderer_tpu_torch/csrc``,
-holds it bit for bit against its plain PyTorch version, drives the main
-path (the 256 px GAR forward, ``GeneratorWithMap(256, 512, 8)`` in bf16 on
-the 50,400-vertex synthetic face mesh, B=16) and the generation CLI, and
-prints what it measured. Every phase fails loudly; the last line is
+Builds the port's hand-written kernels from ``stylerenderer_tpu_torch/csrc``
+(one ``nvcc`` per source, all started together), holds each bit for bit
+against its plain PyTorch version, drives the port's paths through the
+entry points a user calls, and prints what it measured:
+
+- the 256 px GAR forward, ``GeneratorWithMap(256, 512, 8)`` in bf16 on the
+  50,400-vertex synthetic face mesh, B=16, ``pyramid_mode="each"`` (the
+  multi-level kernel K1) and ``"downsample"`` with the fused pyramid (K1 at
+  one level) and without it (the single-level kernel K2);
+- the synthetic-face dataset writer at 256 px, B=16 (K2);
+- ``render_mean_face`` at 256 x 192 (K2);
+- the generation CLI.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. Every phase fails loudly; the last line is
 ``{"ok": true, "device": {...}}`` only when all of them passed. Without a
-CUDA card it exits non-zero and prints no result. Weights and meshes are
-random, made from fixed seeds.
+CUDA card it exits non-zero and prints no result. Weights, meshes and data
+are random, made from fixed seeds.
 """
 
 from __future__ import annotations
@@ -26,16 +36,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 TOP, N_LEVELS, TILE, EPS = 256, 7, 16, 1e-6
 BATCH = 16
-FORWARDS = 10
+FORWARDS = 10      # timed forwards of the "each" path
+DS_FORWARDS = 5    # timed forwards of each "downsample" path
+SYNTH_IMAGES = 64
+MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
-# f32 operations of the kernel's candidate math per (pixel, candidate whose
+# f32 operations of the kernels' candidate math per (pixel, candidate whose
 # clamped bbox holds the pixel): bbox test 4, three edge functions 12, inside
 # test 3, coefficient sum and guard 5, reciprocal 1, normalize 3, clamp 6,
 # depth 5, z-test 2, interpolation 5 per channel; and per (triangle, level)
-# setup: rescale 12, adjugate and det 11, orientation 16, bbox 12, longest
-# edge and picks 25.
-OPS_PER_PAIR_BASE, OPS_PER_PAIR_CHANNEL, OPS_PER_SETUP = 41, 5, 76
+# setup: rescale 12 (levels below the top only), adjugate and det 11,
+# orientation 16, bbox 12, longest edge and picks 25.
+OPS_PER_PAIR_BASE, OPS_PER_PAIR_CHANNEL, OPS_PER_SETUP, OPS_RESCALE = 41, 5, 76, 12
 
 
 def log(*args):
@@ -56,6 +69,16 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def once_ms(torch, fn):
+    """(result, device time in ms) of one call of ``fn``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def compare_multi(out, ref, with_attrs: bool, what: str) -> float:
     """Winners equal and values equal at every level -> max |value error|."""
     err = 0.0
@@ -72,41 +95,74 @@ def compare_multi(out, ref, with_attrs: bool, what: str) -> float:
     return err
 
 
-def k1_bound(torch, dat, starts, top, n_levels, tile, n_attr):
-    """Least time for the kernel's work on these inputs: (bound_ms, bound_by,
-    bytes, operations, pairs, valid triangles). Bytes: the rows of the valid
-    binned triangles (data and id) read once, the segment starts, and the
-    maps written once; invalid triangles are sorted past every tile's
-    segments and never read. Operations: the candidate math for every
-    (pixel, triangle) pair whose clamped bbox at that level holds the
-    pixel, plus one setup per (valid triangle, level)."""
-    B, nf, R = dat.shape
-    ntiles = (top // tile) ** 2
-    pixels = B * sum((top >> k) ** 2 for k in range(n_levels))
-    n_valid = starts[:, 4 * ntiles].long()
-    nbytes = (int(n_valid.sum()) * (R + 1) * 4 + starts.numel() * 4
-              + pixels * 4 * (1 + n_attr))
+def compare_wins(out, ref, what: str) -> float:
+    """Winner maps equal -> max |id difference| (0)."""
+    if out.shape != ref.shape or not bool((out == ref).all()):
+        n = int((out != ref).sum()) if out.shape == ref.shape else -1
+        raise AssertionError(f"{what}: {n} winners differ (shapes {tuple(out.shape)}, "
+                             f"{tuple(ref.shape)})")
+    return float((out - ref).abs().max())
+
+
+def bbox_pairs(torch, dat, n_valid, h, w, n_levels):
+    """(pixel, triangle) pairs whose clamped bbox at each level holds the
+    pixel, over the valid rows of binned triangles (corner px, py at the
+    top level in columns 0-5)."""
     pairs = 0
-    setups = int(n_valid.sum()) * n_levels
-    for b in range(B):
+    for b in range(dat.shape[0]):
         t = dat[b, : int(n_valid[b])]
         px, py = t[:, 0:3], t[:, 3:6]
         for k in range(n_levels):
-            wl = top >> k
+            wl, hl = w >> k, h >> k
             inv = 1.0 / (1 << k)
             sh = inv * 0.5 - 0.5
             qx, qy = (px * inv + sh, py * inv + sh) if k else (px, py)
             x0 = torch.clamp(torch.ceil(qx.amin(-1)), min=0.0)
             x1 = torch.clamp(torch.floor(qx.amax(-1)), max=wl - 1.0)
             y0 = torch.clamp(torch.ceil(qy.amin(-1)), min=0.0)
-            y1 = torch.clamp(torch.floor(qy.amax(-1)), max=wl - 1.0)
+            y1 = torch.clamp(torch.floor(qy.amax(-1)), max=hl - 1.0)
             n = torch.clamp(x1 - x0 + 1, min=0) * torch.clamp(y1 - y0 + 1, min=0)
             pairs += int(n.double().sum())
-    ops = pairs * (OPS_PER_PAIR_BASE + OPS_PER_PAIR_CHANNEL * n_attr) + setups * OPS_PER_SETUP
+    return pairs
+
+
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the byte and operation times."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
-            pairs, int(n_valid.sum()))
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(torch, dat, starts, top, n_levels, n_attr):
+    """Least time for K1's work on these inputs: (bound_ms, bound_by, bytes,
+    operations, pairs, valid triangles). Bytes: the rows of the valid
+    binned triangles (data and id) read once, the segment starts, and the
+    maps written once; invalid triangles are sorted past every tile's
+    segments and never read. Operations: the candidate math for every
+    (pixel, triangle) pair whose clamped bbox at that level holds the
+    pixel, plus one setup per (valid triangle, level)."""
+    B, nf, R = dat.shape
+    pixels = B * sum((top >> k) ** 2 for k in range(n_levels))
+    n_valid = starts[:, -1].long()  # invalid triangles sort past the last key
+    nbytes = (int(n_valid.sum()) * (R + 1) * 4 + starts.numel() * 4
+              + pixels * 4 * (1 + n_attr))
+    pairs = bbox_pairs(torch, dat, n_valid, top, top, n_levels)
+    setups = int(n_valid.sum()) * n_levels
+    ops = pairs * (OPS_PER_PAIR_BASE + OPS_PER_PAIR_CHANNEL * n_attr) + setups * OPS_PER_SETUP
+    return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
+
+
+def k2_bound(torch, dat, starts, h, w):
+    """Least time for K2's work on these inputs, as ``k1_bound``: the valid
+    rows (9 f32 and an i32 id) read once, the segment starts, the winner
+    map written once; the winners-only candidate math per bbox pair, plus
+    one top-level setup (no rescale) per valid triangle."""
+    B = dat.shape[0]
+    n_valid = starts[:, -1].long()  # invalid triangles sort past the last key
+    nbytes = int(n_valid.sum()) * 10 * 4 + starts.numel() * 4 + B * h * w * 4
+    pairs = bbox_pairs(torch, dat, n_valid, h, w, 1)
+    ops = pairs * OPS_PER_PAIR_BASE + int(n_valid.sum()) * (OPS_PER_SETUP - OPS_RESCALE)
+    return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
 
 
 def profile_forwards(torch, gen, inputs, top_n: int = 12):
@@ -144,6 +200,7 @@ def profile_forwards(torch, gen, inputs, top_n: int = 12):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -152,19 +209,45 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_meshes import KERNEL_CASES, kernel_case
+    from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, single_case
     from stylerenderer_tpu_torch.cli.generate import main as generate_main
+    from stylerenderer_tpu_torch.data import write_synth_dataset
     from stylerenderer_tpu_torch.face3d import (
         mesh_point_normal, random_apply_pose3D, synthetic_face,
     )
+    from stylerenderer_tpu_torch.face3d.alignment import render_mean_face
     from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
     from stylerenderer_tpu_torch.ops import _build
+    from stylerenderer_tpu_torch.ops.rasterize import rasterize
+    from stylerenderer_tpu_torch.ops.resize import resize_linear
     from stylerenderer_tpu_torch.ops.rasterize_multi import (
         build_bins_multi,
         launch_rasterize_multi,
         rasterize_winners_multi,
         rasterize_winners_multi_ref,
     )
+    from stylerenderer_tpu_torch.ops.rasterize_single import (
+        build_bins,
+        launch_rasterize_single,
+        rasterize_winners_single,
+        rasterize_winners_single_ref,
+        tile_for,
+    )
+
+    kernels = {"rasterize_multi": rasterize_winners_multi,
+               "rasterize_single": rasterize_winners_single}
+    path_launches = {}
+
+    def run_path(name, fn):
+        """Drive one path with every launch count at 0 just before it;
+        record and return (its result, the counts just after)."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        path_launches[name] = counts
+        return out, counts
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -180,13 +263,16 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
-    # ---- phase 2: build the kernels ---------------------------------------
-    _build.cuda_library()
-    log(f"build: rasterize_multi.cu in {_build.build_seconds('cuda'):.1f} s")
-    log(_build.build_log("cuda").strip() or "(library loaded from an earlier build)")
+    # ---- phase 2: build the kernels, in parallel ----------------------------
+    t0 = time.perf_counter()
+    _build.build_cuda_libraries()
+    log(f"build: {len(_build.CUDA_LIBRARIES)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name in _build.CUDA_LIBRARIES:
+        log(f"build {name}: {_build.build_seconds(name):.1f} s")
+        log(_build.build_log(name).strip() or "(library loaded from an earlier build)")
 
-    # ---- phase 3: the kernel against its plain version ----------------------
-    max_err = 0.0
+    # ---- phase 3: K1 against its plain version ------------------------------
+    max_err = {"rasterize_multi": 0.0, "rasterize_single": 0.0}
     g = torch.Generator().manual_seed(0)
     face, tri = synthetic_face(180, 280, 80, 29, device=dev)
     log(f"mesh: synthetic_face(180, 280, 80, 29): {face.mean.shape[0] // 3} vertices, "
@@ -199,7 +285,8 @@ def main() -> int:
     ref = rasterize_winners_multi_ref(vert2, tri, TOP, N_LEVELS, attrs=norm2)
     torch.cuda.synchronize()
     log(f"plain version, production mesh, B=2: {time.perf_counter() - t0:.1f} s")
-    max_err = max(max_err, compare_multi(out, ref, True, "production mesh B=2 C=3"))
+    max_err["rasterize_multi"] = max(max_err["rasterize_multi"],
+                                     compare_multi(out, ref, True, "production mesh B=2 C=3"))
     win_only = rasterize_winners_multi(vert2, tri, TOP, N_LEVELS)
     compare_multi(win_only, [w for _, w in ref], False, "production mesh B=2 winners-only")
     log(f"check: production mesh B=2, 7 levels {TOP}..{TOP >> (N_LEVELS - 1)} px: winners "
@@ -211,11 +298,46 @@ def main() -> int:
         for attrs in (a, None):
             o = rasterize_winners_multi(v, t_, top, n_levels, persp, attrs=attrs, tile=tile)
             r = rasterize_winners_multi_ref(v, t_, top, n_levels, persp, attrs=attrs, tile=tile)
-            max_err = max(max_err, compare_multi(o, r, attrs is not None, name))
+            max_err["rasterize_multi"] = max(max_err["rasterize_multi"],
+                                             compare_multi(o, r, attrs is not None, name))
         log(f"check: {name} (top {top}, {n_levels} levels, tile {tile}, perspective "
             f"{persp}): both modes bit-equal")
 
-    # ---- phase 4: the main path -------------------------------------------
+    # ---- phase 3a: K2 against its plain version -----------------------------
+    for name in sorted(SINGLE_CASES):
+        v, t_, h, w, tile, persp = single_case(name)
+        v, t_ = torch.from_numpy(v).to(dev), torch.from_numpy(t_).to(dev)
+        max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+            rasterize_winners_single(v, t_, h, w, persp, tile=tile),
+            rasterize_winners_single_ref(v, t_, h, w, persp), name))
+        log(f"check: K2 {name} ({h} x {w}, tile {tile}, perspective {persp}): bit-equal")
+    synth_face, synth_tri = synthetic_face(48, 96, 80, 29, device=dev)
+    svert16 = random_apply_pose3D(g, synth_face(synth_face.random_input(BATCH, g)))
+    ref16, synth_plain_ms = once_ms(
+        torch, lambda: rasterize_winners_single_ref(svert16, synth_tri, TOP, TOP))
+    for tile in (8, 16, 32):
+        max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+            rasterize_winners_single(svert16, synth_tri, TOP, TOP, tile=tile), ref16,
+            f"K2 synth mesh B={BATCH} tile {tile}"))
+    log(f"check: K2 synthetic_face(48, 96, 80, 29) ({synth_tri.shape[0]} triangles), {TOP}^2, "
+        f"B={BATCH}, tiles 8, 16, 32: bit-equal; plain version {synth_plain_ms:.1f} ms (once); "
+        f"covered {float((ref16 >= 0).float().mean()):.3f}")
+    ref2 = rasterize_winners_single_ref(vert2, tri, TOP, TOP)
+    for tile in (8, 16):
+        max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+            rasterize_winners_single(vert2, tri, TOP, TOP, tile=tile), ref2,
+            f"K2 production mesh B=2 tile {tile}"))
+    log(f"check: K2 production mesh {TOP}^2 B=2, tiles 8, 16: bit-equal")
+
+    # ---- phase 3b: K1 at one level against its plain version ----------------
+    (v1, w1), = rasterize_winners_multi(vert2, tri, TOP, 1, attrs=norm2)
+    (rv1, rw1), = rasterize_winners_multi_ref(vert2, tri, TOP, 1, attrs=norm2)
+    max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+        [(v1, w1)], [(rv1, rw1)], True, "K1 one level, production mesh B=2"))
+    compare_wins(w1, ref2, "K1 one level against K2's plain version")
+    log(f"check: K1 n_levels=1 at {TOP}^2, production mesh B=2: winners and values bit-equal")
+
+    # ---- phase 4: the "each" path -------------------------------------------
     gen = GeneratorWithMap(256, 512, 8, dtype=torch.bfloat16, seed=0, device=dev).eval()
     batches = []
     for _ in range(FORWARDS + 1):
@@ -226,23 +348,20 @@ def main() -> int:
         z, vert, norm = batches[0]
         gen([z], (vert, norm, tri))  # warm-up: cuDNN plans, allocator
         torch.cuda.synchronize()
-        rasterize_winners_multi.launches = 0
         t0 = time.perf_counter()
-        images = [gen([z], (vert, norm, tri))[0] for z, vert, norm in batches[1:]]
-        torch.cuda.synchronize()
+        images, counts = run_path("each", lambda: [
+            gen([z], (vert, norm, tri))[0] for z, vert, norm in batches[1:]])
         elapsed = time.perf_counter() - t0
-        launches = rasterize_winners_multi.launches
-    if launches != FORWARDS:
-        raise AssertionError(f"rasterize_multi launched {launches} times in {FORWARDS} forwards")
+    if counts != {"rasterize_multi": FORWARDS, "rasterize_single": 0}:
+        raise AssertionError(f"each path: launches {counts} in {FORWARDS} forwards")
     for img in images:
         if tuple(img.shape) != (BATCH, 3, 256, 256):
             raise AssertionError(f"image shape {tuple(img.shape)}")
         if not bool(torch.isfinite(img.float()).all()):
             raise AssertionError("non-finite image")
-    renders_per_s = BATCH * FORWARDS / elapsed
-    log(f"main path: GeneratorWithMap(256, 512, 8) bf16, B={BATCH}, {FORWARDS} forwards in "
-        f"{elapsed:.4f} s: {renders_per_s:.1f} renders/s (host clock); rasterize_multi "
-        f"launches {launches}; image std {float(images[-1].float().std()):.4f}")
+    log(f"each path: GeneratorWithMap(256, 512, 8) bf16, B={BATCH}, {FORWARDS} forwards in "
+        f"{elapsed:.4f} s: {BATCH * FORWARDS / elapsed:.1f} renders/s (host clock); launches "
+        f"{counts}; image std {float(images[-1].float().std()):.4f}")
     with torch.no_grad():
         z, vert, norm = batches[-1]
         mesh = (vert, norm, tri)
@@ -251,30 +370,156 @@ def main() -> int:
         pyr_ms = cuda_ms(torch, lambda: gen.normal_pyramid(mesh), 5)
         syn_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps), 5)
         fwd_ms = cuda_ms(torch, lambda: gen([z], mesh), 5)
-    log(f"forward split (CUDA events, B={BATCH}): normal pyramid {pyr_ms:.3f} ms, "
+    log(f"each forward split (CUDA events, B={BATCH}): normal pyramid {pyr_ms:.3f} ms, "
         f"synthesis {syn_ms:.3f} ms, whole forward {fwd_ms:.3f} ms")
     profile_forwards(torch, gen, [(z, (vert, norm, tri)) for z, vert, norm in batches[1:]])
 
-    # the kernel alone at the main path's shapes, B=16
+    # K1 alone at the each path's shapes, B=16
     dat, ids, starts = build_bins_multi(vert, tri, TOP, N_LEVELS, False, EPS, TILE, attrs=norm)
     bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, N_LEVELS, False, EPS,
                                                       TILE, attrs=norm), 5)
     k1_ms = cuda_ms(torch, lambda: launch_rasterize_multi(dat, ids, starts, TOP, N_LEVELS, TILE,
                                                           False, EPS), 20)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref16 = rasterize_winners_multi_ref(vert, tri, TOP, N_LEVELS, attrs=norm)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    ref16m, k1_plain_ms = once_ms(
+        torch, lambda: rasterize_winners_multi_ref(vert, tri, TOP, N_LEVELS, attrs=norm))
     out16 = rasterize_winners_multi(vert, tri, TOP, N_LEVELS, attrs=norm)
-    max_err = max(max_err, compare_multi(out16, ref16, True, "main path B=16"))
-    bound_ms, bound_by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP,
-                                                               N_LEVELS, TILE, 3)
-    log(f"rasterize_multi at B={BATCH}: kernel {k1_ms:.4f} ms, binning {bins_ms:.4f} ms, "
-        f"plain version {plain_ms:.1f} ms (once); bound {bound_ms:.4f} ms by {bound_by} "
+    max_err["rasterize_multi"] = max(max_err["rasterize_multi"],
+                                     compare_multi(out16, ref16m, True, "each path B=16"))
+    k1b_ms, k1_by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP, N_LEVELS, 3)
+    log(f"K1 rasterize_multi at B={BATCH}: kernel {k1_ms:.4f} ms, binning {bins_ms:.4f} ms, "
+        f"plain version {k1_plain_ms:.1f} ms (once); bound {k1b_ms:.4f} ms by {k1_by} "
         f"({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid of "
         f"{dat.shape[0] * dat.shape[1]} binned triangles); bit-equal to the plain version")
+    del gen, batches, images, ref16m, out16, dat, ids, starts
+
+    # ---- phase 4a: the synthetic-data path -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "faces256.srpack")
+        write_synth_dataset(os.path.join(tmp, "warm.srpack"), BATCH, size=256, seed=1,
+                            batch=BATCH, device=dev)
+        t0 = time.perf_counter()
+        n, counts = run_path("synth", lambda: write_synth_dataset(
+            path, SYNTH_IMAGES, size=256, seed=0, batch=BATCH, device=dev))
+        synth_s = time.perf_counter() - t0
+        n_batches = -(-SYNTH_IMAGES // BATCH)
+        if n != SYNTH_IMAGES or counts != {"rasterize_multi": 0, "rasterize_single": n_batches}:
+            raise AssertionError(f"synth path: {n} images, launches {counts}")
+        with open(path, "rb") as f:
+            head = f.read(28)
+        size = os.path.getsize(path)
+        if head[:4] != b"SRPK" or size != 28 + 16 * n + n * 256 * 256 * 3:
+            raise AssertionError(f"synth shard: header {head!r}, {size} bytes")
+    log(f"synth path: write_synth_dataset({SYNTH_IMAGES} images, 256 px, B={BATCH}) in "
+        f"{synth_s:.3f} s: {SYNTH_IMAGES / synth_s:.1f} images/s (host clock, shard write "
+        f"included); launches {counts}; shard {size} bytes")
+
+    # ---- phase 4b: the "downsample" paths -------------------------------------
+    def resize_chain(top):
+        cur = top
+        for s in (128, 64, 32, 16, 8, 4):
+            cur = resize_linear(cur, s, s)
+        return cur
+
+    ds = {}
+    mesh16 = None
+    for fused in (True, False):
+        gen = GeneratorWithMap(256, 512, 8, dtype=torch.bfloat16, pyramid_mode="downsample",
+                               fused_pyramid=fused, seed=0, device=dev).eval()
+        inputs = []
+        for _ in range(DS_FORWARDS + 1):
+            vert = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+            inputs.append((torch.randn(BATCH, 512, generator=g).to(dev),
+                           (vert, mesh_point_normal(vert, tri), tri)))
+        mesh16 = mesh16 or inputs[-1][1]
+        with torch.no_grad():
+            gen([inputs[0][0]], inputs[0][1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images, counts = run_path(f"downsample_fused={fused}", lambda: [
+                gen([z], m)[0] for z, m in inputs[1:]])
+            elapsed = time.perf_counter() - t0
+            want = ({"rasterize_multi": DS_FORWARDS, "rasterize_single": 0} if fused
+                    else {"rasterize_multi": 0, "rasterize_single": DS_FORWARDS})
+            if counts != want:
+                raise AssertionError(f"downsample fused={fused}: launches {counts}")
+            for img in images:
+                if tuple(img.shape) != (BATCH, 3, 256, 256) or not bool(
+                        torch.isfinite(img.float()).all()):
+                    raise AssertionError(f"downsample fused={fused}: bad image")
+            z = inputs[-1][0]
+            latent = gen.get_latent(z)[:, None, :].repeat(1, gen.n_latent, 1)
+            maps = gen.normal_pyramid(mesh16)
+            pyr_ms = cuda_ms(torch, lambda: gen.normal_pyramid(mesh16), 5)
+            chain_ms = cuda_ms(torch, lambda: resize_chain(maps[-1]), 5)
+            syn_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps), 5)
+            fwd_ms = cuda_ms(torch, lambda: gen([z], mesh16), 5)
+        ds[fused] = maps
+        log(f"downsample path, fused_pyramid={fused}: B={BATCH}, {DS_FORWARDS} forwards in "
+            f"{elapsed:.4f} s: {BATCH * DS_FORWARDS / elapsed:.1f} renders/s (host clock); "
+            f"launches {counts}; split (CUDA events): normal pyramid {pyr_ms:.3f} ms (its "
+            f"resize chain alone {chain_ms:.3f} ms), synthesis {syn_ms:.3f} ms, whole forward {fwd_ms:.3f} ms")
+        del gen, inputs, images
+    for k, (a, b) in enumerate(zip(ds[True], ds[False])):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"downsample: level {k}: fused and unfused pyramids differ")
+    log(f"check: downsample normal pyramids, fused and unfused, bit-equal at all "
+        f"{len(ds[True])} levels")
+
+    # ---- phase 4c: render_mean_face -------------------------------------------
+    hh, ww = MEAN_FACE_HW
+    tex = torch.rand(face.mean.shape[0] // 3, 3, generator=torch.Generator().manual_seed(5))
+    img, counts = run_path("render_mean_face",
+                           lambda: render_mean_face(face, tex, tri, hh, ww))
+    if counts != {"rasterize_multi": 0, "rasterize_single": 1}:
+        raise AssertionError(f"render_mean_face: launches {counts}")
+    v0 = face(torch.zeros(1, face.sigma.shape[0], device=dev))
+    dense = rasterize(v0, tex.to(dev)[None], tri, hh, ww, method="dense")[0].cpu().numpy()
+    want = np.clip(dense[:, :, ::-1] * 255.0, 0, 255).astype(np.uint8)
+    if img.shape != (hh, ww, 3) or not np.array_equal(img, want):
+        raise AssertionError("render_mean_face differs from the dense search's render")
+    log(f"render_mean_face {hh} x {ww}: launches {counts}; equal to the dense render; "
+        f"face pixels {float((img > 0).any(-1).mean()):.3f}")
+
+    # ---- phase 4d: K2 and K1 at one level at the downsample path's shapes -----
+    # both against their plain versions on the production mesh, B=16: the
+    # input the unfused (K2) and fused (K1, one level, C=3) paths give them
+    vert, norm, _ = mesh16
+    tile = tile_for(TOP, TOP)
+    ref16p, k2_plain_ms = once_ms(
+        torch, lambda: rasterize_winners_single_ref(vert, tri, TOP, TOP))
+    max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+        rasterize_winners_single(vert, tri, TOP, TOP), ref16p,
+        f"K2 production mesh B={BATCH} tile {tile}"))
+    del ref16p
+    ref1, k1_one_plain_ms = once_ms(
+        torch, lambda: rasterize_winners_multi_ref(vert, tri, TOP, 1, attrs=norm))
+    max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+        rasterize_winners_multi(vert, tri, TOP, 1, attrs=norm), ref1, True,
+        f"K1 one level, C=3, production mesh B={BATCH}"))
+    del ref1
+    log(f"check: K2 (tile {tile}) and K1 at one level with C=3 values, production mesh "
+        f"{TOP}^2 B={BATCH}: bit-equal to their plain versions")
+    dat, ids, starts = build_bins(vert, tri, TOP, TOP, False, EPS, tile)
+    k2_bins_ms = cuda_ms(torch, lambda: build_bins(vert, tri, TOP, TOP, False, EPS, tile), 5)
+    k2_ms = cuda_ms(torch, lambda: launch_rasterize_single(dat, ids, starts, TOP, TOP, tile,
+                                                           False, EPS), 20)
+    k2b_ms, k2_by, nbytes, ops, pairs, n_valid = k2_bound(torch, dat, starts, TOP, TOP)
+    dat16, ids16, starts16 = build_bins(vert, tri, TOP, TOP, False, EPS, 16)
+    k2_t16_ms = cuda_ms(torch, lambda: launch_rasterize_single(dat16, ids16, starts16, TOP, TOP,
+                                                               16, False, EPS), 20)
+    mdat, mids, mstarts = build_bins_multi(vert, tri, TOP, 1, False, EPS, TILE)
+    k1_one_ms = cuda_ms(torch, lambda: launch_rasterize_multi(mdat, mids, mstarts, TOP, 1, TILE,
+                                                              False, EPS), 20)
+    k1_one_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, 1, False, EPS,
+                                                             TILE), 5)
+    log(f"K2 rasterize_single at {TOP}^2, B={BATCH}, production mesh, tile {tile}: kernel "
+        f"{k2_ms:.4f} ms, binning {k2_bins_ms:.4f} ms; bound {k2b_ms:.4f} ms by {k2_by} "
+        f"({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid of "
+        f"{dat.shape[0] * dat.shape[1]} binned triangles); plain version {k2_plain_ms:.1f} ms "
+        f"(same input, once); tile 16: kernel {k2_t16_ms:.4f} ms")
+    log(f"K1 at one level on the same input (tile {TILE}, winners only): kernel "
+        f"{k1_one_ms:.4f} ms, binning {k1_one_bins_ms:.4f} ms; plain version with C=3 values "
+        f"{k1_one_plain_ms:.1f} ms (once)")
 
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -303,13 +548,13 @@ def main() -> int:
 
     # ---- phase 6: the generation CLI ------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        before = rasterize_winners_multi.launches
         t0 = time.perf_counter()
-        paths = generate_main(["--with_map", "--size", "256", "--sample", "4", "--pics", "1",
-                               "--out", tmp, "--save_normals"])
+        paths, counts = run_path("cli", lambda: generate_main([
+            "--with_map", "--size", "256", "--sample", "4", "--pics", "1", "--out", tmp,
+            "--save_normals"]))
         cli_s = time.perf_counter() - t0
-        if rasterize_winners_multi.launches != before + 1:
-            raise AssertionError("the CLI's forward did not launch rasterize_multi once")
+        if counts != {"rasterize_multi": 1, "rasterize_single": 0}:
+            raise AssertionError(f"the CLI's forward launched {counts}")
         size = os.path.getsize(paths[0])
         with open(paths[0], "rb") as f:
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
@@ -318,18 +563,37 @@ def main() -> int:
         f"PNG {size} bytes")
 
     # ---- phase 7: the result ------------------------------------------------
+    log(f"launches by path: {json.dumps(path_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    main_paths = ("each", "synth", "downsample_fused=True", "downsample_fused=False",
+                  "render_mean_face")
+
+    def launches(name):
+        return sum(path_launches[p][name] for p in main_paths)
+
     log(json.dumps({"kernels": [{
         "name": "rasterize_multi",
         "route": "cuda",
         "source": "stylerenderer_tpu_torch/csrc/rasterize_multi.cu",
         "replaces": "stylerenderer_tpu/ops/rasterize_pallas.py:799",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": launches("rasterize_multi"),
+        "max_abs_err": max_err["rasterize_multi"],
         "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "plain_ms": k1_plain_ms,
+        "bound_ms": k1b_ms,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
+        "name": "rasterize_single",
+        "route": "cuda",
+        "source": "stylerenderer_tpu_torch/csrc/rasterize_single.cu",
+        "replaces": "stylerenderer_tpu/ops/rasterize_pallas.py:364",
+        "launches": launches("rasterize_single"),
+        "max_abs_err": max_err["rasterize_single"],
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2b_ms,
+        "bound_by": k2_by,
         "library_ms": None,
     }]}))
     log(f"nvidia-smi: {smi}")

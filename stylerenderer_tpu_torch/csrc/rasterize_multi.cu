@@ -97,7 +97,8 @@ rasterize_multi_kernel(const float* __restrict__ dat, const int* __restrict__ id
       __syncthreads();
       for (int i = tid; i < n * n_levels; i += nthr) {
         const int t = i / n_levels, k = i - t * n_levels;
-        sr::level_setup(s_raw + t * R, k, (float)(top >> k), eps, s_set[i]);
+        const float wl = (float)(top >> k);
+        sr::level_setup(s_raw + t * R, k, wl, wl, eps, s_set[i]);
       }
       __syncthreads();
 #pragma unroll

@@ -1,7 +1,8 @@
 // Per-candidate math and per-tile bookkeeping of the multi-level pyramid
 // rasterizer, shared by the Hopper kernel (rasterize_multi.cu) and its host
 // build (rasterize_multi_host.cpp), so the CPU tests check the very code the
-// card runs.
+// card runs. The single-level kernel (rasterize_single.cu and its host build)
+// uses the same candidate math at level 0.
 //
 // Every expression mirrors stylerenderer_tpu/ops/rasterize_pallas.py
 // (_level_setup :186, _level_pixels :265, _kernel_depth :162) and the dense
@@ -61,8 +62,10 @@ SR_HD float pick3(bool m0, bool m1, float v0, float v1, float v2) {
 
 // t: the 9 raw floats of one triangle at the TOP level. Level k rescales
 // px_l = px*2^-k + (2^-k*0.5 - 0.5); the top level skips the rescale, so its
-// expression stream is exactly the dense oracle's.
-SR_HD void level_setup(const float* t, int k, float wl, float eps, LevelSetup& S) {
+// expression stream is exactly the dense oracle's. wl and hl are the level's
+// width and height in pixels (the pyramid passes its square size twice).
+SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
+                       LevelSetup& S) {
   float px0 = t[0], px1 = t[1], px2 = t[2];
   float py0 = t[3], py1 = t[4], py2 = t[5];
   if (k > 0) {
@@ -95,7 +98,7 @@ SR_HD void level_setup(const float* t, int k, float wl, float eps, LevelSetup& S
   S.x0 = fmax_(ceilf(umin), 0.0f);
   S.x1 = fmin_(floorf(umax), wl - 1.0f);
   S.y0 = fmax_(ceilf(vmin), 0.0f);
-  S.y1 = fmin_(floorf(vmax), wl - 1.0f);
+  S.y1 = fmin_(floorf(vmax), hl - 1.0f);
   const bool bbox_ok = (S.x1 >= S.x0) && (S.y1 >= S.y0);
   S.a0 = a0; S.a1 = a1; S.a2 = a2;
   S.b0 = b0; S.b1 = b1; S.b2 = b2;

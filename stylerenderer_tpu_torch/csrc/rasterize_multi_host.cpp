@@ -33,7 +33,8 @@ extern "C" int sr_rasterize_multi_host(const float* dat, const int* ids, const i
           for (int p = lo[sg]; p < hi[sg]; ++p) {
             const float* raw = dat_b + (long long)p * R;
             sr::LevelSetup S;
-            sr::level_setup(raw, k, (float)(top >> k), eps, S);
+            const float wl = (float)(top >> k);
+            sr::level_setup(raw, k, wl, wl, eps, S);
             float depth, co[3];
             if (sr::level_pixel(S, raw, (float)X, (float)Y, perspective != 0, eps, depth, co) &&
                 sr::beats(depth, ids_b[p], best, bid)) {

@@ -2,13 +2,14 @@
 (counterpart of ``GeneratorWithMap`` in
 ``stylerenderer_tpu/models/generator.py``).
 
-At 4x4 and at every upsample step the mesh normals are rasterized at the
-feature resolution (one multi-level kernel pass renders the whole
-pyramid); a per-resolution ResBlock turns each normal map into (scale,
-shift) maps that modulate the styled convolutions before noise and
-activation. NCHW, reference state-dict names (``style.{i}``, ``input.input``,
-``conv1``, ``convs.{i}``, ``to_rgb1``, ``to_rgbs.{i}``, ``norm1``,
-``norm_to_style.{i}``, ``noises.noise_{i}``).
+At 4x4 and at every upsample step the mesh normals condition the features
+at that resolution: rasterized per level (one multi-level kernel pass
+renders the whole pyramid) or rasterized once and shrunk level by level
+(``pyramid_mode="downsample"``); a per-resolution ResBlock turns each
+normal map into (scale, shift) maps that modulate the styled convolutions
+before noise and activation. NCHW, reference state-dict names
+(``style.{i}``, ``input.input``, ``conv1``, ``convs.{i}``, ``to_rgb1``,
+``to_rgbs.{i}``, ``norm1``, ``norm_to_style.{i}``, ``noises.noise_{i}``).
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ from stylerenderer_tpu_torch.nn.layers import (
 )
 from stylerenderer_tpu_torch.ops.fused_act import FusedLeakyReLU
 from stylerenderer_tpu_torch.ops.rasterize import (
+    rasterize,
     rasterize_pyramid,
     rasterize_pyramid_fused,
 )
+from stylerenderer_tpu_torch.ops.resize import resize_linear
 
 
 def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
@@ -145,23 +148,29 @@ def _mix_styles(styles, n_latent: int, inject_index, truncation, truncation_late
 class GeneratorWithMap(nn.Module):
     """The Generative Adversarial Renderer.
 
-    ``mesh = (vert [B, nv, 3], norm [B, nv, 3], tri [nf, 3])``. The normal
-    maps are rasterized at every level (the JAX package's
-    ``pyramid_mode="each"``, reference-exact; its ``"downsample"`` mode and
-    ``n_stylemap != 3`` are not ported). ``fused_pyramid`` interpolates the
-    normals inside the multi-level kernel; without it the kernel gives
-    winners only and the values come from the gather interpolation.
-    Parameters are drawn from ``seed`` and moved to ``device`` (``"cuda"``
-    unless asked otherwise).
+    ``mesh = (vert [B, nv, 3], norm [B, nv, 3], tri [nf, 3])``.
+    ``pyramid_mode``: ``"each"`` rasterizes the normals at every level
+    (reference-exact); ``"downsample"`` rasterizes once at ``size`` and
+    shrinks that map level by level with the antialiased linear resize
+    (``n_stylemap != 3`` is not ported). ``fused_pyramid`` interpolates the
+    normals inside the multi-level kernel; without it the values come from
+    the gather interpolation over the winners of the multi-level kernel
+    (``"each"``) or of ``rasterize`` (``"downsample"``). ``rasterize_method``
+    is the rasterizer's ``method``. Parameters are drawn from ``seed`` and
+    moved to ``device`` (``"cuda"`` unless asked otherwise).
     """
 
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
                  lr_mlp: float = 0.01, dtype=torch.float32,
+                 pyramid_mode: str = "each", rasterize_method: str = "auto",
                  fused_pyramid: bool = True, seed: int = 0, device="cuda"):
         super().__init__()
+        if pyramid_mode not in ("each", "downsample"):
+            raise ValueError(f"pyramid_mode {pyramid_mode!r}: 'each' or 'downsample'")
         device = resolve_device(device)
         self.size, self.style_dim, self.dtype = size, style_dim, dtype
+        self.pyramid_mode, self.rasterize_method = pyramid_mode, rasterize_method
         self.fused_pyramid = fused_pyramid
         self.log_size = int(math.log2(size))
         self.n_latent = self.log_size * 2 - 2
@@ -209,8 +218,18 @@ class GeneratorWithMap(nn.Module):
         """Rasterized normal maps at 4, 8, ..., size, ``[B, s, s, 3]`` each."""
         vert, norm, tri = mesh
         sizes = [4] + [2 ** i for i in range(3, self.log_size + 1)]
-        fn = rasterize_pyramid_fused if self.fused_pyramid else rasterize_pyramid
-        return fn(vert, norm, tri, sizes)
+        method = self.rasterize_method
+        if self.pyramid_mode == "each":
+            fn = rasterize_pyramid_fused if self.fused_pyramid else rasterize_pyramid
+            return fn(vert, norm, tri, sizes, method=method)
+        if self.fused_pyramid:
+            top = rasterize_pyramid_fused(vert, norm, tri, [self.size], method=method)[0]
+        else:
+            top = rasterize(vert, norm, tri, self.size, self.size, method=method)
+        maps = [top]
+        for s in reversed(sizes[:-1]):
+            maps.append(resize_linear(maps[-1], s, s))
+        return maps[::-1]
 
     def synthesize(self, latent, norm_maps, noise=None,
                    generator: torch.Generator | None = None):

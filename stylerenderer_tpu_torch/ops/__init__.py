@@ -1,4 +1,5 @@
-"""Ops: fused activation, upfirdn2d, and the rasterizer with its kernel."""
+"""Ops: fused activation, upfirdn2d, the linear resize, and the rasterizer
+with its two kernels."""
 
 from stylerenderer_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from stylerenderer_tpu_torch.ops.rasterize import (
@@ -12,6 +13,11 @@ from stylerenderer_tpu_torch.ops.rasterize_multi import (
     rasterize_winners_multi,
     rasterize_winners_multi_ref,
 )
+from stylerenderer_tpu_torch.ops.rasterize_single import (
+    rasterize_winners_single,
+    rasterize_winners_single_ref,
+)
+from stylerenderer_tpu_torch.ops.resize import resize_linear
 from stylerenderer_tpu_torch.ops.upfirdn2d import (
     blur,
     downsample2d,
@@ -24,5 +30,6 @@ __all__ = [
     "blur", "downsample2d", "fused_leaky_relu", "make_kernel", "rasterize",
     "rasterize_index_coeff", "rasterize_pyramid", "rasterize_pyramid_fused",
     "rasterize_winners", "rasterize_winners_multi", "rasterize_winners_multi_ref",
+    "rasterize_winners_single", "rasterize_winners_single_ref", "resize_linear",
     "scaled_leaky_relu", "upfirdn2d", "upsample2d",
 ]

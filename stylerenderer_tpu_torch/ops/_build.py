@@ -6,13 +6,15 @@ as Python ints. Libraries land in ``stylerenderer_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name that hashes the sources and the flags, so a
 changed source rebuilds and an unchanged one loads the library already there.
 
-- ``cuda_library()``: ``nvcc`` for Hopper (``sm_90a``). ``--fmad=false``
+- ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, ``single``:
+  ``csrc/rasterize_single.cu``) for Hopper (``sm_90a``), built in parallel
+  by ``build_cuda_libraries()``. ``--fmad=false``
   keeps every ``a*b+c`` as a rounded multiply and a rounded add, as the
   oracle computes them; the default ``-prec-div=true`` keeps IEEE division;
   fast math is never on. ``-Xptxas -v`` reports registers and shared memory
   (``build_log()``).
-- ``host_library()``: ``g++`` build of the same per-candidate math for the
-  CPU tests, ``-ffp-contract=off`` for the same reason.
+- ``g++`` libraries (``multi_host``, ``single_host``) of the same per-candidate
+  math for the CPU tests, ``-ffp-contract=off`` for the same reason.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def _find_nvcc() -> str:
 def _build(name: str, compiler: list[str], flags: tuple[str, ...],
            source: str, headers: tuple[str, ...]) -> ctypes.CDLL:
     """Compile ``source`` into ``_build/<name>-<hash>.so`` unless that file
-    exists, and load it."""
+    exists, and load it (uncached: ``library`` caches it once its argument
+    types are set)."""
     h = hashlib.sha256(" ".join(flags).encode())
     for f in (source,) + headers:
         with open(os.path.join(CSRC, f), "rb") as fh:
@@ -75,8 +78,7 @@ def _build(name: str, compiler: list[str], flags: tuple[str, ...],
         os.replace(tmp, out)
     _SECONDS[name] = time.perf_counter() - t0
     _LOGS[name] = log
-    _LIBS[name] = ctypes.CDLL(out)
-    return _LIBS[name]
+    return ctypes.CDLL(out)
 
 
 def build_log(name: str) -> str:
@@ -89,28 +91,53 @@ def build_seconds(name: str) -> float:
 
 
 _MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_SINGLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_STREAM = [ctypes.c_void_p]
+
+# name -> (compiler, source, headers, {C function: argument types})
+_SPECS = {
+    "multi": ("nvcc", "rasterize_multi.cu", ("rasterize_multi.cuh",),
+              {"sr_rasterize_multi": _MULTI_ARGS + _STREAM}),
+    "single": ("nvcc", "rasterize_single.cu", ("rasterize_single.cuh", "rasterize_multi.cuh"),
+               {"sr_rasterize_single": _SINGLE_ARGS + _STREAM}),
+    "multi_host": ("g++", "rasterize_multi_host.cpp", ("rasterize_multi.cuh",),
+                   {"sr_rasterize_multi_host": _MULTI_ARGS}),
+    "single_host": ("g++", "rasterize_single_host.cpp",
+                    ("rasterize_single.cuh", "rasterize_multi.cuh"),
+                    {"sr_rasterize_single_host": _SINGLE_ARGS}),
+}
+CUDA_LIBRARIES = tuple(n for n, spec in _SPECS.items() if spec[0] == "nvcc")
 
 
-def cuda_library() -> ctypes.CDLL:
-    """The Hopper kernels (``csrc/rasterize_multi.cu``)."""
-    if "cuda" not in _LIBS:
-        lib = _build("cuda", [_find_nvcc()], NVCC_FLAGS, "rasterize_multi.cu",
-                     ("rasterize_multi.cuh",))
-        lib.sr_rasterize_multi.argtypes = _MULTI_ARGS + [ctypes.c_void_p]
-        lib.sr_rasterize_multi.restype = ctypes.c_int
-        lib.sr_error_string.argtypes = [ctypes.c_int]
-        lib.sr_error_string.restype = ctypes.c_char_p
-    return _LIBS["cuda"]
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    return gxx
 
 
-def host_library() -> ctypes.CDLL:
-    """The host build of the kernel's math (``csrc/rasterize_multi_host.cpp``)."""
-    if "host" not in _LIBS:
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found")
-        lib = _build("host", [gxx], GXX_FLAGS, "rasterize_multi_host.cpp",
-                     ("rasterize_multi.cuh",))
-        lib.sr_rasterize_multi_host.argtypes = _MULTI_ARGS
-        lib.sr_rasterize_multi_host.restype = ctypes.c_int
-    return _LIBS["host"]
+def library(name: str) -> ctypes.CDLL:
+    """Build (unless built) and load the library ``name`` of ``_SPECS``."""
+    if name not in _LIBS:
+        compiler, source, headers, functions = _SPECS[name]
+        if compiler == "nvcc":
+            lib = _build(name, [_find_nvcc()], NVCC_FLAGS, source, headers)
+            lib.sr_error_string.argtypes = [ctypes.c_int]
+            lib.sr_error_string.restype = ctypes.c_char_p
+        else:
+            lib = _build(name, [_gxx()], GXX_FLAGS, source, headers)
+        for fn, argtypes in functions.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        # cached only now: a caller never sees ctypes' default conversions
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def build_cuda_libraries() -> None:
+    """Build every Hopper library at once, one ``nvcc`` per source, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
+        list(pool.map(library, CUDA_LIBRARIES))

@@ -2,8 +2,8 @@
 (counterpart of ``stylerenderer_tpu/ops/rasterize.py``).
 
 Semantics, expressions and association order are the JAX package's, so
-winner maps are bit-equal to it and to the Hopper kernel
-(``ops/rasterize_multi.py``):
+winner maps are bit-equal to it and to the Hopper kernels
+(``ops/rasterize_multi.py``, ``ops/rasterize_single.py``):
 
 - vertices are NDC; pixel transform ``px = (1+x)*W/2 - 0.5``,
   ``py = (1-y)*H/2 - 0.5``; optional perspective pre-divides x, y by ``-z``
@@ -189,7 +189,7 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
     """Dense winner search: ``[B, H, W]`` int32 triangle index, -1 background.
 
     Every (triangle, pixel) pair is evaluated, triangles in chunks; the test
-    oracle and the plain version of the pyramid kernel.
+    oracle and the plain version of both kernels.
     """
     v = v.detach().float()
     tri = torch.as_tensor(tri, device=v.device).long()
@@ -287,8 +287,32 @@ def winner_coeff(v, tri, win, h: int, w: int, perspective: bool = False,
 
 
 def _dispatch_winners(v, tri, h, w, perspective, eps, method):
-    if method in ("auto", "dense"):
+    """The winner search for ``method``, by the JAX package's names
+    (``rasterize.py:399``):
+
+    - ``"auto"``: the single-level kernel when ``nf*h*w > 2^24`` and h and
+      w are multiples of 8, else the dense search;
+    - ``"dense"``: the dense search;
+    - ``"pallas"``: the single-level kernel (``rasterize_single.py``).
+
+    ``"pallas_multi"`` names the multi-level pass of the pyramid functions,
+    which send the sizes it does not cover here as ``"auto"``; here it is
+    refused, as in JAX. A kernel's wrapper runs its plain version on a CPU
+    tensor."""
+    if method == "auto":
+        nf = tri.shape[0]
+        small = nf * h * w <= (1 << 24) or h % 8 or w % 8
+        method = "dense" if small else "pallas"
+    if method == "dense":
         return rasterize_winners(v, tri, h, w, perspective, eps)
+    if method == "pallas":
+        from stylerenderer_tpu_torch.ops.rasterize_single import rasterize_winners_single
+
+        return rasterize_winners_single(v, tri, h, w, perspective, eps)
+    if method == "binned":
+        raise ValueError("method 'binned' is the JAX package's XLA scatter search, "
+                         "not a Pallas kernel, and is not ported: use 'auto', 'dense' "
+                         "or 'pallas'")
     raise ValueError(f"unknown rasterize method {method!r}")
 
 
@@ -358,8 +382,9 @@ def _multi_levels(sizes, method: str, n_attr: int | None):
     """The JAX package's rule for the fused pyramid: the levels the
     multi-level pass covers (the power-of-two tail ``top, top/2, ...`` of
     ``sizes``), or ``[]`` when it does not apply (more than 7 channels, a
-    ``top`` that is no multiple of the tile, or an explicit dense method)."""
-    if method != "auto":
+    ``top`` that is no multiple of the tile, or a method other than
+    ``"auto"`` and ``"pallas_multi"``)."""
+    if method not in ("auto", "pallas_multi"):
         return []
     if n_attr is not None and n_attr > 7:
         return []
@@ -428,11 +453,12 @@ def rasterize_pyramid_fused(v, tex, tri, sizes, perspective: bool = False,
         fused = _FusedLevels.apply(v, tex_b, tri, covered[0], covered,
                                    perspective, eps)
         maps = dict(zip(covered, fused))
+    meth = "auto" if method == "pallas_multi" else method
     results = []
     for s in sizes:
         m = maps.get(s)
         if m is None:
-            win = _dispatch_winners(v, tri, s, s, perspective, eps, method)
+            win = _dispatch_winners(v, tri, s, s, perspective, eps, meth)
             m = _interp_from_win(v, tex_b, tri, win, s, s, perspective, eps)
         m = m.to(tex_b.dtype)
         results.append(m[..., 0] if scalar_tex else m)
@@ -459,12 +485,13 @@ def rasterize_pyramid(v, tex, tri, sizes, perspective: bool = False,
         outs = rasterize_winners_multi(v.detach(), tri, covered[0],
                                        len(covered), perspective, eps)
         wins = dict(zip(covered, outs))
+    meth = "auto" if method == "pallas_multi" else method
     tbl = _triangle_table(v, tex_b, tri)
     results = []
     for s in sizes:
         win = wins.get(s)
         if win is None:
-            win = _dispatch_winners(v, tri, s, s, perspective, eps, method)
+            win = _dispatch_winners(v, tri, s, s, perspective, eps, meth)
         results.append(_interp_from_win(v, tex_b, tri, win, s, s, perspective,
                                         eps, tbl=tbl))
     return results

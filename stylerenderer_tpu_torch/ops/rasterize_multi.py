@@ -259,10 +259,10 @@ def launch_rasterize_multi(dat, ids, starts, top: int, n_levels: int, tile: int,
     on the current stream -> flat level-major (values, winners). Counts the
     launch in ``rasterize_winners_multi.launches``; raises when the launch
     is refused."""
-    from stylerenderer_tpu_torch.ops._build import cuda_library
+    from stylerenderer_tpu_torch.ops._build import library
 
     n_attr = _check_bins(dat, ids, starts, top, tile)
-    lib = cuda_library()
+    lib = library("multi")
     B = dat.shape[0]
     vals, wins = _alloc_outputs(B, top, n_levels, n_attr, dat.device)
     stream = torch.cuda.current_stream(dat.device).cuda_stream
@@ -314,11 +314,11 @@ def rasterize_winners_multi_host(v, tri, top: int, n_levels: int,
                                  attrs=None, tile: int | None = None):
     """The kernel's candidate math and tile bookkeeping compiled for the host
     (g++), on CPU tensors: same binning, same output as the kernel."""
-    from stylerenderer_tpu_torch.ops._build import host_library
+    from stylerenderer_tpu_torch.ops._build import library
 
     tile = _check_levels(top, n_levels, tile)
     _check_inputs(v, attrs)
-    lib = host_library()
+    lib = library("multi_host")
     B = v.shape[0]
     n_attr = 0 if attrs is None else attrs.shape[-1]
     dat, ids, starts = build_bins_multi(v.cpu(), tri, top, n_levels, perspective,

@@ -1,5 +1,5 @@
-"""The port's Hopper kernel on the card, bit for bit against its plain
-version (marker ``gpu``; each test skips when no CUDA card is present).
+"""The port's Hopper kernels on the card, bit for bit against their plain
+versions (marker ``gpu``; each test skips when no CUDA card is present).
 
 This file imports no JAX, so it also runs on a machine without it; there
 ``-o markers=`` registers the marker that ``tests/conftest.py`` registers
@@ -13,12 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from torch_meshes import KERNEL_CASES, kernel_case
+from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, single_case
 
-from stylerenderer_tpu_torch.ops.rasterize import rasterize_pyramid_fused
+from stylerenderer_tpu_torch.face3d import (
+    mesh_point_normal, random_apply_pose3D, synthetic_face,
+)
+from stylerenderer_tpu_torch.ops.rasterize import rasterize, rasterize_pyramid_fused
 from stylerenderer_tpu_torch.ops.rasterize_multi import (
     rasterize_winners_multi,
     rasterize_winners_multi_ref,
+)
+from stylerenderer_tpu_torch.ops.rasterize_single import (
+    rasterize_winners_single,
+    rasterize_winners_single_ref,
 )
 
 
@@ -68,3 +75,49 @@ def test_cuda_fused_pyramid_gradients_match_cpu(cuda):
         grads.append((vt.grad.cpu(), tt.grad.cpu()))
     torch.testing.assert_close(grads[1][0], grads[0][0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_cuda_single_kernel_bitexact(cuda, case):
+    """The single-level kernel: tiles 8, 16 and 32, rectangular images,
+    edge tiles that stick out, perspective, degenerate and XL triangles."""
+    v, tri, h, w, tile, persp = single_case(case)
+    v, tri = torch.from_numpy(v).to(cuda), torch.from_numpy(tri).to(cuda)
+    before = rasterize_winners_single.launches
+    out = rasterize_winners_single(v, tri, h, w, persp, tile=tile)
+    torch.cuda.synchronize()
+    assert rasterize_winners_single.launches == before + 1
+    ref = rasterize_winners_single_ref(v, tri, h, w, persp)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_cuda_multi_one_level_bitexact(cuda, case):
+    """The multi-level kernel at one level (the fused top of the
+    ``downsample`` pyramid): winners and values."""
+    v, tri, attrs, top, _, tile, persp = kernel_case(case)
+    v, tri, attrs = (torch.from_numpy(x).to(cuda) for x in (v, tri, attrs))
+    (val, win), = rasterize_winners_multi(v, tri, top, 1, persp, attrs=attrs, tile=tile)
+    (rval, rwin), = rasterize_winners_multi_ref(v, tri, top, 1, persp, attrs=attrs, tile=tile)
+    np.testing.assert_array_equal(win.cpu().numpy(), rwin.cpu().numpy())
+    np.testing.assert_array_equal(val.cpu().numpy(), rval.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_rasterize_production_size_takes_single_kernel(cuda):
+    """``rasterize`` at ``nf*h*w > 2^24`` launches the single-level kernel
+    once and neither the dense search nor the multi-level kernel; its
+    values equal the dense method's."""
+    face, tri = synthetic_face(48, 96, 80, 29, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    vert = random_apply_pose3D(g, face(face.random_input(2, g)))
+    norm = mesh_point_normal(vert, tri)
+    single, multi = rasterize_winners_single.launches, rasterize_winners_multi.launches
+    out = rasterize(vert, norm, tri, 256, 192)
+    torch.cuda.synchronize()
+    assert rasterize_winners_single.launches == single + 1
+    assert rasterize_winners_multi.launches == multi
+    ref = rasterize(vert, norm, tri, 256, 192, method="dense")
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())

@@ -301,9 +301,9 @@ def host_build():
 
     if shutil.which("g++") is None:
         pytest.skip("no g++ on PATH: the host build of the kernel's math cannot be made")
-    from stylerenderer_tpu_torch.ops._build import host_library
+    from stylerenderer_tpu_torch.ops._build import library
 
-    return host_library()
+    return library("multi_host")
 
 
 @pytest.mark.parametrize("with_attrs", [False, True])
