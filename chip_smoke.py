@@ -16,6 +16,10 @@ entry points a user calls, and prints what it measured:
 - ``render_mean_face`` at 256 x 192 (K2);
 - the generation CLI.
 
+K1 is timed at the ``each`` shapes (7 levels, C=3) and at one level,
+with its binning on the card held against the plain binning
+``build_bins_multi`` (keys and starts equal) and timed beside it.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every phase fails loudly; the last line is
 ``{"ok": true, "device": {...}}`` only when all of them passed. Without a
@@ -165,6 +169,59 @@ def k2_bound(torch, dat, starts, h, w):
     return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
 
 
+def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
+    """K1 at these shapes (top TOP, tile TILE, values of ``norm`` or
+    winners only): the card's binning held against the plain binning (keys
+    and starts equal), then timed with CUDA events over many launches
+    after a warm-up: the plain binning, the card's binning, the kernel;
+    the bound from the plain binning's output; the kernel's launch shape
+    (threads, shared memory, registers, spills, resident blocks per SM)."""
+    import ctypes
+
+    from stylerenderer_tpu_torch.ops import _build
+    from stylerenderer_tpu_torch.ops.rasterize_multi import (
+        build_bins_multi, launch_bin_multi, launch_rasterize_multi,
+    )
+
+    n_attr = 0 if norm is None else norm.shape[-1]
+    dat, ids, starts = build_bins_multi(vert, tri, TOP, n_levels, False, EPS, TILE, attrs=norm)
+    rows, cstarts, slots, keys = launch_bin_multi(vert, tri, TOP, n_levels, False, EPS, TILE,
+                                                  attrs=norm)
+    if not torch.equal(cstarts, starts):
+        raise AssertionError(f"K1 {n_levels} levels: the card's starts differ from the plain "
+                             "binning's")
+    want = keys_of_bins(ids.cpu().numpy(), starts.cpu().numpy())
+    if not np.array_equal(keys.cpu().numpy(), want):
+        raise AssertionError(f"K1 {n_levels} levels: the card's keys differ from the plain "
+                             "binning's")
+    plain_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, n_levels, False,
+                                                            EPS, TILE, attrs=norm), 5)
+    bins_ms = cuda_ms(torch, lambda: launch_bin_multi(vert, tri, TOP, n_levels, False, EPS,
+                                                      TILE, attrs=norm), 50)
+    ms = cuda_ms(torch, lambda: launch_rasterize_multi(rows, cstarts, slots, TOP, n_levels, TILE,
+                                                       n_attr, False, EPS), 50)
+    bound_ms, by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP, n_levels,
+                                                         n_attr)
+    shape = (ctypes.c_int * 6)()
+    rc = _build.library("multi").sr_rasterize_multi_shape(TOP, n_levels, TILE, n_attr, shape)
+    if rc != 0:
+        raise AssertionError(f"K1 launch shape query failed: {rc}")
+    del dat, ids, rows, slots
+    return {"ms": ms, "bins_ms": bins_ms, "plain_bins_ms": plain_bins_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes, "ops": ops, "pairs": pairs, "n_valid": n_valid,
+            "binned": int(vert.shape[0] * tri.shape[0]),
+            "shape": dict(zip(("threads", "dynamic_smem", "static_smem", "registers",
+                               "local_bytes", "blocks_per_sm"), shape))}
+
+
+def k1_report(what: str, m) -> str:
+    return (f"{what}: kernel {m['ms']:.4f} ms, card binning {m['bins_ms']:.4f} ms (keys and "
+            f"starts equal to the plain binning's), plain binning {m['plain_bins_ms']:.4f} ms; "
+            f"bound {m['bound_ms']:.4f} ms by {m['bound_by']} ({m['bytes']} bytes, {m['ops']} "
+            f"f32 ops, {m['pairs']} bbox pairs, {m['n_valid']} valid of {m['binned']} binned "
+            f"triangles); kernel launch shape {m['shape']}")
+
+
 def profile_forwards(torch, gen, inputs, top_n: int = 12):
     """Device time by the host op that launched it over a few forwards
     (torch.profiler), and the device's busy share of the host-clock window
@@ -209,7 +266,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, single_case
+    from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, keys_of_bins, single_case
     from stylerenderer_tpu_torch.cli.generate import main as generate_main
     from stylerenderer_tpu_torch.data import write_synth_dataset
     from stylerenderer_tpu_torch.face3d import (
@@ -221,8 +278,6 @@ def main() -> int:
     from stylerenderer_tpu_torch.ops.rasterize import rasterize
     from stylerenderer_tpu_torch.ops.resize import resize_linear
     from stylerenderer_tpu_torch.ops.rasterize_multi import (
-        build_bins_multi,
-        launch_rasterize_multi,
         rasterize_winners_multi,
         rasterize_winners_multi_ref,
     )
@@ -374,23 +429,16 @@ def main() -> int:
         f"synthesis {syn_ms:.3f} ms, whole forward {fwd_ms:.3f} ms")
     profile_forwards(torch, gen, [(z, (vert, norm, tri)) for z, vert, norm in batches[1:]])
 
-    # K1 alone at the each path's shapes, B=16
-    dat, ids, starts = build_bins_multi(vert, tri, TOP, N_LEVELS, False, EPS, TILE, attrs=norm)
-    bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, N_LEVELS, False, EPS,
-                                                      TILE, attrs=norm), 5)
-    k1_ms = cuda_ms(torch, lambda: launch_rasterize_multi(dat, ids, starts, TOP, N_LEVELS, TILE,
-                                                          False, EPS), 20)
+    # K1 alone at the each path's shapes, B=16, C=3
+    k1 = k1_measure(torch, np, vert, tri, N_LEVELS, norm, keys_of_bins)
     ref16m, k1_plain_ms = once_ms(
         torch, lambda: rasterize_winners_multi_ref(vert, tri, TOP, N_LEVELS, attrs=norm))
     out16 = rasterize_winners_multi(vert, tri, TOP, N_LEVELS, attrs=norm)
     max_err["rasterize_multi"] = max(max_err["rasterize_multi"],
                                      compare_multi(out16, ref16m, True, "each path B=16"))
-    k1b_ms, k1_by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP, N_LEVELS, 3)
-    log(f"K1 rasterize_multi at B={BATCH}: kernel {k1_ms:.4f} ms, binning {bins_ms:.4f} ms, "
-        f"plain version {k1_plain_ms:.1f} ms (once); bound {k1b_ms:.4f} ms by {k1_by} "
-        f"({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid of "
-        f"{dat.shape[0] * dat.shape[1]} binned triangles); bit-equal to the plain version")
-    del gen, batches, images, ref16m, out16, dat, ids, starts
+    log(k1_report(f"K1 rasterize_multi at B={BATCH}, {N_LEVELS} levels, C=3", k1)
+        + f"; plain version {k1_plain_ms:.1f} ms (once), bit-equal to it")
+    del gen, batches, images, ref16m, out16
 
     # ---- phase 4a: the synthetic-data path -----------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -507,19 +555,14 @@ def main() -> int:
     dat16, ids16, starts16 = build_bins(vert, tri, TOP, TOP, False, EPS, 16)
     k2_t16_ms = cuda_ms(torch, lambda: launch_rasterize_single(dat16, ids16, starts16, TOP, TOP,
                                                                16, False, EPS), 20)
-    mdat, mids, mstarts = build_bins_multi(vert, tri, TOP, 1, False, EPS, TILE)
-    k1_one_ms = cuda_ms(torch, lambda: launch_rasterize_multi(mdat, mids, mstarts, TOP, 1, TILE,
-                                                              False, EPS), 20)
-    k1_one_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, 1, False, EPS,
-                                                             TILE), 5)
+    k1_one = k1_measure(torch, np, vert, tri, 1, norm, keys_of_bins)
     log(f"K2 rasterize_single at {TOP}^2, B={BATCH}, production mesh, tile {tile}: kernel "
         f"{k2_ms:.4f} ms, binning {k2_bins_ms:.4f} ms; bound {k2b_ms:.4f} ms by {k2_by} "
         f"({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid of "
         f"{dat.shape[0] * dat.shape[1]} binned triangles); plain version {k2_plain_ms:.1f} ms "
         f"(same input, once); tile 16: kernel {k2_t16_ms:.4f} ms")
-    log(f"K1 at one level on the same input (tile {TILE}, winners only): kernel "
-        f"{k1_one_ms:.4f} ms, binning {k1_one_bins_ms:.4f} ms; plain version with C=3 values "
-        f"{k1_one_plain_ms:.1f} ms (once)")
+    log(k1_report(f"K1 at one level on the same input (tile {TILE}, C=3, the fused downsample "
+                  "path)", k1_one) + f"; plain version {k1_one_plain_ms:.1f} ms (once)")
 
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -578,11 +621,12 @@ def main() -> int:
         "replaces": "stylerenderer_tpu/ops/rasterize_pallas.py:799",
         "launches": launches("rasterize_multi"),
         "max_abs_err": max_err["rasterize_multi"],
-        "ms": k1_ms,
+        "ms": k1["ms"],
         "plain_ms": k1_plain_ms,
-        "bound_ms": k1b_ms,
-        "bound_by": k1_by,
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
         "library_ms": None,
+        "bins_ms": k1["bins_ms"],
     }, {
         "name": "rasterize_single",
         "route": "cuda",

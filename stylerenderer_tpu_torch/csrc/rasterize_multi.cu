@@ -1,194 +1,373 @@
-// Multi-level pyramid rasterizer for Hopper (sm_90a).
+// Multi-level pyramid rasterizer for Hopper (sm_90a), and its binning.
 //
 // Replaces stylerenderer_tpu/ops/rasterize_pallas.py::_make_kernel_multi
-// (the Pallas TPU kernel launched at rasterize_pallas.py:1182). For every
-// pixel of every pyramid level, from `top` px down to top >> (n_levels-1),
-// it finds the covering triangle of max depth (lowest id on ties) and, in
-// attribute mode, the winner's interpolated attributes.
+// (the Pallas TPU kernel launched at rasterize_pallas.py:1182) and the
+// binning that feeds it (build_bins_multi, :645, which the JAX package
+// leaves to XLA). For every pixel of every pyramid level, from `top` px down
+// to top >> (n_levels-1), it finds the covering triangle of max depth
+// (lowest id on ties) and, in attribute mode, the winner's interpolated
+// attributes.
 //
-// Input: the binned triangles of ops/rasterize_multi.py::build_bins_multi,
-// sorted by key tier*ntiles + home tile: dat [B, nf, 9 + 3C] f32 (corner
-// px, py, z at the top level, then per-corner attributes), ids [B, nf] i32,
-// starts [B, 4*ntiles + 1] i32. Output, level-major: vals [L][B, s, s, C]
-// f32 (0 on background) and wins [L][B, s, s] i32 (-1 on background).
+// Binning (sr_bin_multi, three passes, no host synchronisation): classify
+// one thread per (batch item, triangle) into its key tier*ntiles + home
+// (bin_multi.cuh, the decisions of ops/rasterize_multi.py::build_bins_multi)
+// and take a slot in its segment with atomicAdd; scan the counts into
+// starts [B, 4*ntiles + 1]; scatter every valid triangle's row: corner px,
+// py, z at the top level, 3C corner attributes, the id's bits, padded to 16
+// bytes (sr::row_words). The order within a segment varies from run to run;
+// the result does not, since sr::beats is a total order on (depth, id) and
+// values come from the winner's own row.
 //
-// Design: one block per (tile, batch item); one thread per pixel row of
-// the tile across all levels (tile 16, 7 levels: 256 + 64 + 16 + 4 + 1 dense
-// rows and 2 sparse rows, 343 rows in 352 threads; two rows per thread when
-// a tile has more than 1024 rows). The block streams the tile's worklist
-// segments (sorted-array ranges, sr::tile_segments) through shared memory
-// in chunks of kChunk triangles. Per chunk the block computes each
-// (triangle, level) setup once into shared memory; then each thread tests
-// every candidate of the chunk against its pixel, mostly rejecting on the
-// bbox of its level. The z-buffer lives in registers; nothing is atomic and
-// the result does not depend on the order of the candidates.
+// Output, level-major: vals [L][B, s, s, C] f32 (0 on background) and wins
+// [L][B, s, s] i32 (-1 on background).
 //
-// What bounds it on this card: the bytes it must move are the rows of the
-// valid triangles (the prefix [0, starts[4*ntiles]) of the sorted arrays;
-// back-facing and off-screen triangles are sorted past it and never read)
-// read once, plus the maps written once: tens of microseconds at B=16 on
-// the 100k-triangle face mesh at 3.35 TB/s (chip_smoke.py prints the
-// figure for its inputs). The useful work, candidates whose bbox holds the
-// pixel, takes less time than that at the card's f32 rate.
-// This simple design instead spends its time on the bbox rejections (every
-// row of a tile tests every candidate of the tile's worklist) and on one
-// barrier per chunk. Staging chunks with cp.async or TMA and culling
-// candidates per warp before the per-pixel test are the next steps.
+// What bounds it on this card: the bytes it must move are the valid rows
+// read once plus the maps written once, tens of microseconds at B=16 on the
+// 100k-triangle face mesh at 3.35 TB/s; the useful candidate math (pixels
+// inside a candidate's bbox) takes less at the card's f32 rate
+// (chip_smoke.py prints both for its inputs). So the design is about not
+// doing useless work. A face triangle covers about one pixel at 256 px and
+// less than one at the coarse levels, where its clamped bbox is mostly
+// empty. The first port gave every pixel row of a tile every candidate of
+// the tile's worklist, nearly all rejected on the bbox. A per-warp cull
+// (lane per candidate, __ballot_sync, the exact test on the survivors) cut
+// the candidates but not the waste: each survivor still took a full warp's
+// pass for the one or two pixels it covers (0.91 ms at 7 levels, B=16,
+// against 1.39 ms; PERF.md). Hence this triangle-parallel design:
 //
-// Bit-exactness: the candidate math (rasterize_multi.cuh) is the oracle's
-// expression sequence; this file must be built with --fmad=false and
-// without fast math (ops/_build.py), see the header's note.
+//   - One block per (tile, batch item), one thread per candidate of the
+//     tile's worklist (its segments as one flat range). At each level the
+//     candidate's bbox is clipped to the tile's pixels there; the rest of
+//     the setup runs only where that clip is not empty and the triangle
+//     faces front, and the exact test (sr::level_pixel) only on the pixels
+//     of the clip. XL and degenerate candidates that miss the tile stop at
+//     the bbox, as rasterize_pallas.py:934-944 skips them.
+//   - The top level is done in place. A coarse level's clip is mostly empty
+//     (a face triangle is smaller than a coarse pixel), and the few lanes
+//     with one would hold their whole warp, so the non-empty coarse clips
+//     go to a queue in shared memory that the block then works through
+//     densely, one (candidate, level) pair per thread.
+//   - The tile's z-buffer is one 64-bit key per pixel row in shared memory,
+//     taken with atomicMax: the ordered depth above the inverted id
+//     (sr::depth_key), so the max is the oracle's winner (max depth, lowest
+//     id, -0 equal to +0) whatever order the threads run in; depths that
+//     cannot win (-inf, NaN) never enter.
+//   - A value pass after one barrier: each pixel's winner is recomputed
+//     from its own row (slots: id -> row, written by the binning) and
+//     interpolated, so values come from exactly one winner.
+//   - Rows are 16-byte aligned, read with three 16-byte loads; no staging
+//     and no barrier per candidate batch.
+
+// Bit-exactness: the candidate math (rasterize_multi.cuh) and the binning
+// (bin_multi.cuh) are the oracle's expression sequences; this file must be
+// built with --fmad=false and without fast math (ops/_build.py), see the
+// headers' notes.
 
 #include <cuda_runtime.h>
 
+#include "bin_multi.cuh"
 #include "rasterize_multi.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;
-constexpr int kMaxLevels = 11;
-constexpr int kMaxRowsPerThread = 2;
+// Rasterizer block: one candidate per thread at a time (sr::kRound, the
+// schedule the host build runs too), held to 64 registers for 4 blocks per
+// SM. A choice: the timings that compared it with other block shapes were
+// not kept.
+constexpr int kThreads = sr::kRound;
+constexpr int kMinBlocks = 4;
+constexpr int kQueue = sr::kQueue;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBinThreads = 256;
+constexpr int kScanThreads = 1024;
 
-template <int C, int RPT>
-__global__ void __launch_bounds__(1024)
-rasterize_multi_kernel(const float* __restrict__ dat, const int* __restrict__ ids,
-                       const int* __restrict__ starts, float* __restrict__ vals,
-                       int* __restrict__ wins, int B, int nf, int top, int n_levels,
-                       int tile, int rows, int perspective, float eps) {
-  constexpr int R = sr::kRaw + 3 * C;
-  extern __shared__ float smem[];
-  float* s_raw = smem;                                           // [kChunk][R]
-  int* s_id = reinterpret_cast<int*>(s_raw + kChunk * R);        // [kChunk]
-  sr::LevelSetup* s_set = reinterpret_cast<sr::LevelSetup*>(s_id + kChunk);  // [kChunk][L]
+// ---- binning ----------------------------------------------------------------
 
-  const int ntx = top / tile;
-  const int ntiles = ntx * ntx;
+__global__ void bin_classify(const float* __restrict__ v, const long long* __restrict__ tri,
+                             int* __restrict__ keys, int* __restrict__ rank,
+                             int* __restrict__ counts, int B, int nv, int nf, int top,
+                             int n_levels, int tile, int perspective, float eps) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * nf) return;
+  const int b = (int)(i / nf), f = (int)(i - (long long)b * nf);
+  const int K = sr::kTiers * (top / tile) * (top / tile);
+  float px[3], py[3], z[3];
+  const bool ok = sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top,
+                                  perspective != 0, eps, px, py, z);
+  const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps);
+  keys[i] = key;
+  if (key < K) {
+    // one atomicAdd per run of equal keys in the warp: neighbouring
+    // triangles of a mesh mostly share a home tile
+    const unsigned mask = __activemask();
+    const int seg = b * K + key, lane = threadIdx.x & 31;
+    const unsigned peers = __match_any_sync(mask, seg);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(&counts[seg], __popc(peers));
+    base = __shfl_sync(peers, base, leader);
+    rank[i] = base + __popc(peers & ((1u << lane) - 1u));
+  }
+}
+
+// One block per batch item: starts[b] = exclusive scan of counts[b], then
+// the total.
+__global__ void __launch_bounds__(kScanThreads)
+bin_scan(const int* __restrict__ counts, int* __restrict__ starts, int K) {
+  __shared__ int s_warp[kScanThreads / 32];
+  const int* c = counts + (size_t)blockIdx.x * K;
+  int* s = starts + (size_t)blockIdx.x * (K + 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (K + kScanThreads - 1) / kScanThreads;
+  const int lo = min(tid * per, K), hi = min(lo + per, K);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += c[i];
+  int incl = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += up;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  int off = (warp > 0 ? s_warp[warp - 1] : 0) + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    s[i] = off;
+    off += c[i];
+  }
+  if (tid == 0) s[K] = s_warp[kScanThreads / 32 - 1];
+}
+
+__global__ void bin_scatter(const float* __restrict__ v, const long long* __restrict__ tri,
+                            const float* __restrict__ attrs, const int* __restrict__ keys,
+                            const int* __restrict__ rank, const int* __restrict__ starts,
+                            float* __restrict__ rows, int* __restrict__ slots, int B, int nv,
+                            int nf, int top, int tile, int n_attr, int perspective, float eps) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * nf) return;
+  const int K = sr::kTiers * (top / tile) * (top / tile);
+  const int key = keys[i];
+  if (key >= K) return;
+  const int b = (int)(i / nf), f = (int)(i - (long long)b * nf);
+  float px[3], py[3], z[3];
+  sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top, perspective != 0, eps,
+                  px, py, z);
+  const int slot = starts[(size_t)b * (K + 1) + key] + rank[i];
+  slots[i] = slot;
+  sr::bin_row(px, py, z, attrs ? attrs + (size_t)b * nv * n_attr : nullptr, tri + 3 * (size_t)f,
+              nv, n_attr, f, rows + ((size_t)b * nf + slot) * sr::row_words(n_attr));
+}
+
+// ---- the rasterizer -----------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
+                       const int* __restrict__ slots, float* __restrict__ vals,
+                       int* __restrict__ wins, int B, int nf, int top, int n_levels, int tile,
+                       int nrows, int perspective, float eps) {
+  constexpr int RP = sr::row_words(C), R = sr::kRaw + 3 * C;
+  extern __shared__ unsigned long long s_key[];  // [nrows]: the tile's z-buffer
+  __shared__ sr::LevelTile s_lt[sr::kMaxLevels];
+  const int tid = threadIdx.x;
+  const int ntx = top / tile, ntiles = ntx * ntx;
   const int tx = blockIdx.x % ntx, ty = blockIdx.x / ntx;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x, nthr = blockDim.x;
 
-  int lo[sr::kSegments], hi[sr::kSegments];
-  sr::tile_segments(starts + (size_t)b * (sr::kTiers * ntiles + 1), ntx, tx, ty, lo, hi);
-
-  int lev[RPT], X[RPT], Y[RPT];
-  bool live[RPT];
-  float best[RPT];
-  int bid[RPT];
-  float val[RPT][C > 0 ? C : 1];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = tid + j * nthr;
-    lev[j] = r < rows ? sr::row_pixel(r, top, tile, n_levels, tx, ty, X[j], Y[j], live[j]) : -1;
-    if (lev[j] < 0) live[j] = false;
-    best[j] = -INFINITY;
-    bid[j] = sr::kNoWinner;
-#pragma unroll
-    for (int c = 0; c < (C > 0 ? C : 1); ++c) val[j][c] = 0.0f;
-  }
-
-  const float* dat_b = dat + (size_t)b * nf * R;
-  const int* ids_b = ids + (size_t)b * nf;
-  for (int sg = 0; sg < sr::kSegments; ++sg) {
-    for (int base = lo[sg]; base < hi[sg]; base += kChunk) {
-      const int n = min(kChunk, hi[sg] - base);
-      __syncthreads();  // the previous chunk is consumed
-      for (int i = tid; i < n * R; i += nthr) s_raw[i] = dat_b[(size_t)base * R + i];
-      for (int i = tid; i < n; i += nthr) s_id[i] = ids_b[base + i];
-      __syncthreads();
-      for (int i = tid; i < n * n_levels; i += nthr) {
-        const int t = i / n_levels, k = i - t * n_levels;
-        const float wl = (float)(top >> k);
-        sr::level_setup(s_raw + t * R, k, wl, wl, eps, s_set[i]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        if (!live[j]) continue;
-        const float fx = (float)X[j], fy = (float)Y[j];
-        for (int t = 0; t < n; ++t) {
-          float depth, co[3];
-          const float* raw = s_raw + t * R;
-          if (sr::level_pixel(s_set[t * n_levels + lev[j]], raw, fx, fy, perspective != 0,
-                              eps, depth, co) &&
-              sr::beats(depth, s_id[t], best[j], bid[j])) {
-            best[j] = depth;
-            bid[j] = s_id[t];
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-              val[j][c] = sr::interp(co, raw[sr::kRaw + c], raw[sr::kRaw + C + c],
-                                     raw[sr::kRaw + 2 * C + c]);
-          }
-        }
+  // the worklist's bounds in shared memory: 12 registers fewer per thread
+  __shared__ int lo[sr::kSegments], hi[sr::kSegments];
+  // (sorted position << 4 | level) of each candidate's coarse levels whose
+  // clip is not empty, processed densely after level 0
+  __shared__ int s_queue[kQueue];
+  __shared__ int s_qn;
+  if (tid == 0) s_qn = 0;
+  for (int r = tid; r < nrows; r += kThreads) s_key[r] = 0ull;
+  if (tid < n_levels) sr::level_tile(top, tile, n_levels, tid, tx, ty, s_lt[tid]);
+  if (tid == 0)
+    sr::tile_segments(starts + (size_t)b * (sr::kTiers * ntiles + 1), ntx, tx, ty, lo, hi);
+  __syncthreads();
+  const int total = sr::segment_total(lo, hi);
+  const float* rows_b = rows + (size_t)b * nf * RP;
+  auto emit = [&](int r, unsigned long long key) { atomicMax(&s_key[r], key); };
+  // the row at sorted position p -> its corners in t, its id
+  auto load = [&](int p, float t[12]) {
+    const float* row = rows_b + (size_t)p * RP;
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    *reinterpret_cast<float4*>(t) = __ldg(row4);
+    *reinterpret_cast<float4*>(t + 4) = __ldg(row4 + 1);
+    *reinterpret_cast<float4*>(t + 8) = __ldg(row4 + 2);
+    return sr::f2i(C == 0 ? t[sr::kRaw] : __ldg(row + R));  // (C = 0: the id is t[9])
+  };
+  // every queued (candidate, coarse level) pair, 256 at a time
+  auto run_queue = [&]() {
+    const int n = s_qn;
+    for (int i = tid; i < n; i += kThreads) {
+      const int item = s_queue[i], k = item & 15;
+      float t[12], p[6];
+      sr::LevelSetup S;
+      int clip[4];
+      const int id = load(item >> 4, t);
+      if (sr::level_clip(t, k, top, s_lt[k], p, S, clip))
+        sr::clip_scan(t, id, p, clip, s_lt[k], S, perspective != 0, eps, emit);
+    }
+  };
+  const int lane = tid & 31;
+  for (int q0 = 0; q0 < total; q0 += kThreads) {
+    const int q = q0 + tid;
+    if (q < total) {
+      const int pos = sr::segment_pos(q, lo, hi);
+      float t[12], p[6];
+      sr::LevelSetup S;
+      int clip[4];
+      const int id = load(pos, t);
+      if (sr::level_clip(t, 0, top, s_lt[0], p, S, clip))
+        sr::clip_scan(t, id, p, clip, s_lt[0], S, perspective != 0, eps, emit);
+      for (int k = 1; k < n_levels; ++k) {
+        const bool push = sr::level_clip(t, k, top, s_lt[k], p, S, clip);
+        // one shared atomicAdd per warp for its pushes
+        const unsigned act = __activemask();
+        const unsigned m = __ballot_sync(act, push);
+        const int leader = __ffs(act) - 1;
+        int base = 0;
+        if (lane == leader && m) base = atomicAdd(&s_qn, __popc(m));
+        base = __shfl_sync(act, base, leader);
+        if (push) s_queue[base + __popc(m & ((1u << lane) - 1u))] = pos << 4 | k;
       }
     }
+    // one decision for the whole block, taken before any thread can push
+    // again: thread 0 reads the count after every push of the round
+    __syncthreads();
+    if (__syncthreads_or(tid == 0 && sr::queue_full(s_qn, kQueue, kThreads, n_levels))) {
+      run_queue();
+      __syncthreads();
+      if (tid == 0) s_qn = 0;
+      __syncthreads();
+    }
   }
+  run_queue();
+  __syncthreads();
 
+  for (int r = tid; r < nrows; r += kThreads) {
+    int X, Y;
+    bool live;
+    const int k = sr::row_pixel(r, top, tile, n_levels, tx, ty, X, Y, live);
+    if (!live) continue;
+    const int s = top >> k;
+    const size_t pix = (size_t)sr::level_pixels_before(top, k) * B + ((size_t)b * s + Y) * s + X;
+    const unsigned long long key = s_key[r];
+    const int id = key ? sr::key_id(key) : -1;
+    wins[pix] = id;
+    if (C > 0) {
+      float v[C > 0 ? C : 1];
+      if (id >= 0)
+        sr::winner_values(rows_b + (size_t)slots[(size_t)b * nf + id] * RP, k, (float)s, X, Y,
+                          perspective != 0, eps, C, v);
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    if (!live[j]) continue;
-    const int s = top >> lev[j];
-    const size_t pix = (size_t)sr::level_pixels_before(top, lev[j]) * B +
-                       ((size_t)b * s + Y[j]) * s + X[j];
-    const bool hit = bid[j] != sr::kNoWinner;
-    wins[pix] = hit ? bid[j] : -1;
-#pragma unroll
-    for (int c = 0; c < C; ++c) vals[pix * C + c] = hit ? val[j][c] : 0.0f;
+      for (int a = 0; a < C; ++a) vals[pix * C + a] = id >= 0 ? v[a] : 0.0f;
+    }
   }
 }
 
-template <int C, int RPT>
-cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                   const float* dat, const int* ids, const int* starts, float* vals,
-                   int* wins, int B, int nf, int top, int n_levels, int tile, int rows,
-                   int perspective, float eps) {
-  rasterize_multi_kernel<C, RPT><<<grid, threads, smem, stream>>>(
-      dat, ids, starts, vals, wins, B, nf, top, n_levels, tile, rows, perspective, eps);
-  return cudaGetLastError();
-}
+using Kernel = void (*)(const float*, const int*, const int*, float*, int*, int, int, int, int,
+                        int, int, int, float);
 
-template <int RPT>
-cudaError_t launch_rpt(int n_attr, dim3 grid, int threads, size_t smem, cudaStream_t st,
-                       const float* dat, const int* ids, const int* starts, float* vals,
-                       int* wins, int B, int nf, int top, int n_levels, int tile, int rows,
-                       int persp, float eps) {
-#define SR_LAUNCH(C)                                                                   \
-  case C:                                                                              \
-    return launch<C, RPT>(grid, threads, smem, st, dat, ids, starts, vals, wins, B, nf, \
-                          top, n_levels, tile, rows, persp, eps);
+Kernel kernel_for(int n_attr) {
   switch (n_attr) {
-    SR_LAUNCH(0) SR_LAUNCH(1) SR_LAUNCH(2) SR_LAUNCH(3)
-    SR_LAUNCH(4) SR_LAUNCH(5) SR_LAUNCH(6) SR_LAUNCH(7)
-    default:
-      return cudaErrorInvalidValue;
+    case 0: return rasterize_multi_kernel<0>;
+    case 1: return rasterize_multi_kernel<1>;
+    case 2: return rasterize_multi_kernel<2>;
+    case 3: return rasterize_multi_kernel<3>;
+    case 4: return rasterize_multi_kernel<4>;
+    case 5: return rasterize_multi_kernel<5>;
+    case 6: return rasterize_multi_kernel<6>;
+    case 7: return rasterize_multi_kernel<7>;
+    default: return nullptr;
   }
-#undef SR_LAUNCH
+}
+
+// The kernel for these arguments and its dynamic shared memory (the tile's
+// z-buffer); nullptr when the arguments are refused.
+Kernel prepare(int B, int top, int n_levels, int tile, int n_attr, size_t& smem) {
+  if (B < 1 || B > 65535 || tile < 1 || top % tile || n_levels < 1 ||
+      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7)
+    return nullptr;
+  smem = (size_t)sr::tile_rows(tile, n_levels) * sizeof(unsigned long long);
+  if (smem > 48 * 1024) return nullptr;
+  return kernel_for(n_attr);
 }
 
 }  // namespace
 
-// Launches on `stream` and allocates nothing. Returns cudaGetLastError()
-// after the launch (0 on success).
-extern "C" int sr_rasterize_multi(const float* dat, const int* ids, const int* starts,
-                                  float* vals, int* wins, int B, int nf, int top,
-                                  int n_levels, int tile, int n_attr, int perspective,
-                                  float eps, void* stream) {
-  const int rows = sr::tile_rows(tile, n_levels);
-  const int rpt = (rows + 1023) / 1024;
-  if (B < 1 || top % tile || n_levels < 1 || n_levels > kMaxLevels || n_attr < 0 ||
-      n_attr > 7 || rpt > kMaxRowsPerThread)
+// The binning passes on `stream`; they allocate nothing. counts [B, K] must
+// be zero; keys, rank [B, nf], starts [B, K+1], rows [B, nf,
+// row_words(n_attr)] and slots [B, nf] (each valid triangle's row) are
+// written (rows past starts[b][K] and invalid triangles' slots are not). attrs
+// [B, nv, n_attr] may be null when n_attr is 0. Returns cudaGetLastError()
+// after the launches (0 on success).
+extern "C" int sr_bin_multi(const float* v, const long long* tri, const float* attrs,
+                            int* counts, int* keys, int* rank, int* starts, float* rows,
+                            int* slots, int B,
+                            int nv, int nf, int top, int n_levels, int tile, int n_attr,
+                            int perspective, float eps, void* stream) {
+  if (B < 1 || nv < 1 || nf < 0 || tile < 1 || top % tile || n_levels < 1 ||
+      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7 || (n_attr > 0 && !attrs))
     return (int)cudaErrorInvalidValue;
-  const int threads = (((rows + rpt - 1) / rpt) + 31) / 32 * 32;
-  const int ntx = top / tile;
-  const dim3 grid(ntx * ntx, B);
-  const size_t smem = (size_t)kChunk * (sr::kRaw + 3 * n_attr + 1) * sizeof(float) +
-                      (size_t)kChunk * n_levels * sizeof(sr::LevelSetup);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      rpt == 1 ? launch_rpt<1>(n_attr, grid, threads, smem, st, dat, ids, starts, vals, wins,
-                               B, nf, top, n_levels, tile, rows, perspective, eps)
-               : launch_rpt<2>(n_attr, grid, threads, smem, st, dat, ids, starts, vals, wins,
-                               B, nf, top, n_levels, tile, rows, perspective, eps);
-  return (int)err;
+  const int K = sr::kTiers * (top / tile) * (top / tile);
+  const long long n = (long long)B * nf;
+  const unsigned blocks = (unsigned)((n + kBinThreads - 1) / kBinThreads);
+  if (n > 0)
+    bin_classify<<<blocks, kBinThreads, 0, st>>>(v, tri, keys, rank, counts, B, nv, nf, top,
+                                                 n_levels, tile, perspective, eps);
+  bin_scan<<<B, kScanThreads, 0, st>>>(counts, starts, K);
+  if (n > 0)
+    bin_scatter<<<blocks, kBinThreads, 0, st>>>(v, tri, attrs, keys, rank, starts, rows, slots,
+                                                B, nv, nf, top, tile, n_attr, perspective, eps);
+  return (int)cudaGetLastError();
+}
+
+// The rasterizer on `stream` over sr_bin_multi's rows, starts and slots;
+// allocates nothing. Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int sr_rasterize_multi(const float* rows, const int* starts, const int* slots,
+                                  float* vals, int* wins, int B, int nf, int top, int n_levels,
+                                  int tile, int n_attr, int perspective, float eps,
+                                  void* stream) {
+  size_t smem;
+  const Kernel kernel = prepare(B, top, n_levels, tile, n_attr, smem);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  const int ntx = top / tile;
+  kernel<<<dim3(ntx * ntx, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      rows, starts, slots, vals, wins, B, nf, top, n_levels, tile, sr::tile_rows(tile, n_levels),
+      perspective, eps);
+  return (int)cudaGetLastError();
+}
+
+// The rasterizer's launch shape for these arguments: out = {threads per
+// block, dynamic shared memory bytes, static shared memory bytes,
+// registers per thread, local memory bytes per thread (spills), resident
+// blocks per SM}.
+extern "C" int sr_rasterize_multi_shape(int top, int n_levels, int tile, int n_attr, int* out) {
+  size_t bytes;
+  const Kernel kernel = prepare(1, top, n_levels, tile, n_attr, bytes);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kThreads;
+  out[1] = (int)bytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kernel, kThreads, bytes);
 }
 
 extern "C" const char* sr_error_string(int code) {

@@ -1,8 +1,12 @@
-// Per-candidate math and per-tile bookkeeping of the multi-level pyramid
-// rasterizer, shared by the Hopper kernel (rasterize_multi.cu) and its host
-// build (rasterize_multi_host.cpp), so the CPU tests check the very code the
-// card runs. The single-level kernel (rasterize_single.cu and its host build)
-// uses the same candidate math at level 0.
+// Per-candidate math and per-tile logic (worklists, each candidate's bbox
+// clipped to the tile per level, the z-test key, the winner's values) of
+// the multi-level pyramid rasterizer, shared by the Hopper kernel
+// (rasterize_multi.cu) and its host build (rasterize_multi_host.cpp), which
+// runs the kernel's per-tile schedule (queue_full) with its threads in
+// turn, so the CPU tests check the card's math and its schedule (but not
+// its concurrency: atomics, warp votes, barriers). The single-level kernel
+// (rasterize_single.cu and its host build) uses the same candidate math at
+// level 0.
 //
 // Every expression mirrors stylerenderer_tpu/ops/rasterize_pallas.py
 // (_level_setup :186, _level_pixels :265, _kernel_depth :162) and the dense
@@ -24,6 +28,7 @@
 
 #include <climits>
 #include <cmath>
+#include <cstring>
 
 #ifdef __CUDACC__
 #define SR_HD __host__ __device__ __forceinline__
@@ -37,6 +42,7 @@ constexpr int kSegments = 6;  // tier-0 home, 2 tier-1 rows, 2 degenerate rows, 
 constexpr int kTiers = 4;     // span-1, span-2, degenerate (span <= 2), XL
 constexpr int kRaw = 9;       // px0..2, py0..2, z0..2 ahead of the attributes
 constexpr int kNoWinner = INT_MAX;
+constexpr int kMaxLevels = 11;  // pyramid levels the multi-level kernel takes
 
 // flag bits of LevelSetup::flags
 constexpr int kCanCover = 1;  // front-facing and a non-empty clamped bbox
@@ -60,25 +66,34 @@ SR_HD float pick3(bool m0, bool m1, float v0, float v1, float v2) {
   return m0 ? v0 : (m1 ? v1 : v2);
 }
 
-// t: the 9 raw floats of one triangle at the TOP level. Level k rescales
-// px_l = px*2^-k + (2^-k*0.5 - 0.5); the top level skips the rescale, so its
-// expression stream is exactly the dense oracle's. wl and hl are the level's
-// width and height in pixels (the pyramid passes its square size twice).
-SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
-                       LevelSetup& S) {
-  float px0 = t[0], px1 = t[1], px2 = t[2];
-  float py0 = t[3], py1 = t[4], py2 = t[5];
+// t: the 9 raw floats of one triangle at the TOP level -> its corners p
+// (px0..2, py0..2) at level k: px_l = px*2^-k + (2^-k*0.5 - 0.5). The top
+// level skips the rescale, so its expression stream is exactly the dense
+// oracle's.
+SR_HD void level_corners(const float* t, int k, float p[6]) {
+  for (int i = 0; i < 6; ++i) p[i] = t[i];
   if (k > 0) {
     const float invf = 1.0f / (float)(1 << k);
     const float sh = invf * 0.5f - 0.5f;
     // FMA trap: px*invf + sh must round the product, then the sum
-    px0 = px0 * invf + sh;
-    px1 = px1 * invf + sh;
-    px2 = px2 * invf + sh;
-    py0 = py0 * invf + sh;
-    py1 = py1 * invf + sh;
-    py2 = py2 * invf + sh;
+    for (int i = 0; i < 6; ++i) p[i] = p[i] * invf + sh;
   }
+}
+
+// The clamped integer bbox of corners p in a wl x hl image.
+SR_HD void level_bbox(const float p[6], float wl, float hl, LevelSetup& S) {
+  const float umin = fmin_(fmin_(p[0], p[1]), p[2]), umax = fmax_(fmax_(p[0], p[1]), p[2]);
+  const float vmin = fmin_(fmin_(p[3], p[4]), p[5]), vmax = fmax_(fmax_(p[3], p[4]), p[5]);
+  S.x0 = fmax_(ceilf(umin), 0.0f);
+  S.x1 = fmin_(floorf(umax), wl - 1.0f);
+  S.y0 = fmax_(ceilf(vmin), 0.0f);
+  S.y1 = fmin_(floorf(vmax), hl - 1.0f);
+}
+
+// The rest of the setup, after level_bbox has filled S.x0..S.y1.
+SR_HD void level_coeffs(const float p[6], float eps, LevelSetup& S) {
+  const float px0 = p[0], px1 = p[1], px2 = p[2];
+  const float py0 = p[3], py1 = p[4], py2 = p[5];
   // FMA trap: the adjugate products round before the difference
   float a0 = px1 * py2 - py1 * px2;
   float a1 = py0 * px2 - px0 * py2;
@@ -92,13 +107,6 @@ SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
   a0 = a0 * sign;
   a1 = a1 * sign;
   a2 = a2 * sign;
-
-  const float umin = fmin_(fmin_(px0, px1), px2), umax = fmax_(fmax_(px0, px1), px2);
-  const float vmin = fmin_(fmin_(py0, py1), py2), vmax = fmax_(fmax_(py0, py1), py2);
-  S.x0 = fmax_(ceilf(umin), 0.0f);
-  S.x1 = fmin_(floorf(umax), wl - 1.0f);
-  S.y0 = fmax_(ceilf(vmin), 0.0f);
-  S.y1 = fmin_(floorf(vmax), hl - 1.0f);
   const bool bbox_ok = (S.x1 >= S.x0) && (S.y1 >= S.y0);
   S.a0 = a0; S.a1 = a1; S.a2 = a2;
   S.b0 = b0; S.b1 = b1; S.b2 = b2;
@@ -121,6 +129,16 @@ SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
   S.py_k = pick3(m0, m1, py2, py0, py1);
   S.flags = ((front && bbox_ok) ? kCanCover : 0) | ((det_pos > eps) ? kNondeg : 0) |
             ((pick3(m0, m1, l0, l1, l2) > eps) ? kSeg : 0);
+}
+
+// One triangle's setup at level k of a wl x hl image (the pyramid passes its
+// square size twice).
+SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
+                       LevelSetup& S) {
+  float p[6];
+  level_corners(t, k, p);
+  level_bbox(p, wl, hl, S);
+  level_coeffs(p, eps, S);
 }
 
 // Candidate at pixel (X, Y) of the setup's level; t holds the triangle's
@@ -268,6 +286,156 @@ SR_HD void tile_segments(const int* starts_b, int ntx, int tx, int ty, int lo[kS
   }
   lo[n] = starts_b[(kTiers - 1) * ntiles];
   hi[n] = starts_b[kTiers * ntiles];
+}
+
+// ---- the redesigned kernel's per-tile logic (rasterize_multi.cu) --------
+
+// Words of one binned row (ops/rasterize_multi.py::launch_bin_multi): the 9
+// raw floats, the 3C corner attributes, the triangle id's bits, padded to a
+// multiple of 16 bytes so that a row is whole 16-byte loads.
+SR_HD constexpr int row_words(int n_attr) { return (kRaw + 3 * n_attr + 1 + 3) / 4 * 4; }
+
+SR_HD int f2i(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(f);
+#else
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+#endif
+}
+
+SR_HD float i2f(int i) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(i);
+#else
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+#endif
+}
+
+// One level's pixels in one tile: an inclusive rectangle (empty when
+// x0 > x1) and the tile rows they are: pixel (x, y) is row
+// off + (y - y0) * stride + (x - x0) (row_pixel's numbering).
+struct LevelTile {
+  int x0, x1, y0, y1, off, stride;
+};
+
+SR_HD void level_tile(int top, int tile, int n_levels, int k, int tx, int ty, LevelTile& T) {
+  const int tl = tile >> k;
+  T.off = tile_rows(tile, k);
+  if (tl) {
+    T.x0 = tx * tl;
+    T.y0 = ty * tl;
+    T.x1 = T.x0 + tl - 1;
+    T.y1 = T.y0 + tl - 1;
+    T.stride = tl;
+  } else {  // a sparse level: the one pixel this tile owns, if any
+    int X = 0, Y = 0;
+    bool live;
+    row_pixel(T.off, top, tile, n_levels, tx, ty, X, Y, live);
+    T.x0 = T.x1 = X;
+    T.y0 = T.y1 = Y;
+    if (!live) T.x1 = X - 1;
+    T.stride = 1;
+  }
+}
+
+// The z-test as one 64-bit integer: a larger key wins. The high word orders
+// the depth (-0 and +0 are one depth, as in beats); the low word is the
+// inverted id, so equal depths go to the lowest id. Only depths that can
+// win (> -inf, not NaN) get a key, and every such key is above 0, which
+// marks background.
+SR_HD unsigned long long depth_key(float depth, int id) {
+  const float d = depth == 0.0f ? 0.0f : depth;
+  unsigned u = (unsigned)f2i(d);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)id);
+}
+
+SR_HD int key_id(unsigned long long key) { return (int)(0xffffffffu - (unsigned)key); }
+
+// Candidate t (its raw row) at level k against the tile's pixels there:
+// the level corners p, the clamped bbox in S, and that bbox clipped to the
+// tile's pixels (integers held in f32, clipped before the conversion to
+// int); false when the clip is empty.
+SR_HD bool level_clip(const float* t, int k, int top, const LevelTile& T, float p[6],
+                      LevelSetup& S, int clip[4]) {
+  if (T.x0 > T.x1) return false;
+  level_corners(t, k, p);
+  const float wl = (float)(top >> k);
+  level_bbox(p, wl, wl, S);
+  const float fx0 = fmax_(S.x0, (float)T.x0), fx1 = fmin_(S.x1, (float)T.x1);
+  const float fy0 = fmax_(S.y0, (float)T.y0), fy1 = fmin_(S.y1, (float)T.y1);
+  if (!(fx0 <= fx1 && fy0 <= fy1)) return false;
+  clip[0] = (int)fx0;
+  clip[1] = (int)fx1;
+  clip[2] = (int)fy0;
+  clip[3] = (int)fy1;
+  return true;
+}
+
+// After level_clip: the rest of the setup, then the exact test (level_pixel)
+// on every pixel of the clip; each pixel the triangle covers with a depth
+// that can win gets emit(tile row, depth_key).
+template <class Emit>
+SR_HD void clip_scan(const float* t, int id, const float p[6], const int clip[4],
+                     const LevelTile& T, LevelSetup& S, bool perspective, float eps,
+                     Emit&& emit) {
+  level_coeffs(p, eps, S);
+  if (!(S.flags & kCanCover)) return;
+  for (int y = clip[2]; y <= clip[3]; ++y)
+    for (int x = clip[0]; x <= clip[1]; ++x) {
+      float depth, co[3];
+      if (level_pixel(S, t, (float)x, (float)y, perspective, eps, depth, co) &&
+          depth > -INFINITY)
+        emit(T.off + (y - T.y0) * T.stride + (x - T.x0), depth_key(depth, id));
+    }
+}
+
+// The kernel's per-tile schedule: rounds of kRound candidates, one per
+// thread; each does its top level in place and pushes its non-empty coarse
+// clips, (sorted position << 4 | level), to a queue of kQueue items. After
+// a round, a queue that might not take another round's pushes (at most
+// kRound * (n_levels - 1)) is worked through and emptied; the rest after
+// the last round. The host build runs this schedule with any round and
+// queue size, so the CPU tests reach the flush at small sizes.
+constexpr int kRound = 256;
+constexpr int kQueue = 4096;
+static_assert(kQueue >= kRound * (kMaxLevels - 1), "a round's pushes must fit the queue");
+
+SR_HD bool queue_full(int qn, int queue, int round, int n_levels) {
+  return qn > queue - round * (n_levels - 1);
+}
+
+// The winner's values at pixel (X, Y) of level k: its coefficients
+// recomputed by the same code, then (c0*a0 + c1*a1) + c2*a2 per channel.
+SR_HD void winner_values(const float* t, int k, float wl, int X, int Y, bool perspective,
+                         float eps, int n_attr, float* out) {
+  LevelSetup S;
+  level_setup(t, k, wl, wl, eps, S);
+  float depth, co[3];
+  level_pixel(S, t, (float)X, (float)Y, perspective, eps, depth, co);
+  for (int a = 0; a < n_attr; ++a)
+    out[a] = interp(co, t[kRaw + a], t[kRaw + n_attr + a], t[kRaw + 2 * n_attr + a]);
+}
+
+// Candidates of the tile's segments as one flat range: the number, and the
+// sorted position of the q-th.
+SR_HD int segment_total(const int lo[kSegments], const int hi[kSegments]) {
+  int n = 0;
+  for (int sg = 0; sg < kSegments; ++sg) n += hi[sg] > lo[sg] ? hi[sg] - lo[sg] : 0;
+  return n;
+}
+
+SR_HD int segment_pos(int q, const int lo[kSegments], const int hi[kSegments]) {
+  for (int sg = 0; sg < kSegments; ++sg) {
+    const int n = hi[sg] > lo[sg] ? hi[sg] - lo[sg] : 0;
+    if (q < n) return lo[sg] + q;
+    q -= n;
+  }
+  return -1;
 }
 
 // Offset, in pixels per batch item, of level k in the level-major output.

@@ -6,12 +6,12 @@ as Python ints. Libraries land in ``stylerenderer_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name that hashes the sources and the flags, so a
 changed source rebuilds and an unchanged one loads the library already there.
 
-- ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, ``single``:
-  ``csrc/rasterize_single.cu``) for Hopper (``sm_90a``), built in parallel
-  by ``build_cuda_libraries()``. ``--fmad=false``
-  keeps every ``a*b+c`` as a rounded multiply and a rounded add, as the
-  oracle computes them; the default ``-prec-div=true`` keeps IEEE division;
-  fast math is never on. ``-Xptxas -v`` reports registers and shared memory
+- ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, K1 and its
+  binning passes; ``single``: ``csrc/rasterize_single.cu``) for Hopper
+  (``sm_90a``), built in parallel by ``build_cuda_libraries()``.
+  ``--fmad=false`` keeps every ``a*b+c`` as a rounded multiply and a
+  rounded add, as the oracle computes them; the default ``-prec-div=true``
+  keeps IEEE division; fast math is never on. ``-Xptxas -v`` reports registers and shared memory
   (``build_log()``).
 - ``g++`` libraries (``multi_host``, ``single_host``) of the same per-candidate
   math for the CPU tests, ``-ffp-contract=off`` for the same reason.
@@ -91,17 +91,23 @@ def build_seconds(name: str) -> float:
 
 
 _MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_BIN_ARGS = [ctypes.c_void_p] * 3  # v, tri, attrs; then the outputs and scratch
+_BIN_SHAPE = [ctypes.c_int] * 8 + [ctypes.c_float]
 _SINGLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
 _STREAM = [ctypes.c_void_p]
+_MULTI_HEADERS = ("rasterize_multi.cuh", "bin_multi.cuh")
 
 # name -> (compiler, source, headers, {C function: argument types})
 _SPECS = {
-    "multi": ("nvcc", "rasterize_multi.cu", ("rasterize_multi.cuh",),
-              {"sr_rasterize_multi": _MULTI_ARGS + _STREAM}),
+    "multi": ("nvcc", "rasterize_multi.cu", _MULTI_HEADERS,
+              {"sr_rasterize_multi": _MULTI_ARGS + _STREAM,
+               "sr_bin_multi": _BIN_ARGS + [ctypes.c_void_p] * 6 + _BIN_SHAPE + _STREAM,
+               "sr_rasterize_multi_shape": [ctypes.c_int] * 4 + [ctypes.c_void_p]}),
     "single": ("nvcc", "rasterize_single.cu", ("rasterize_single.cuh", "rasterize_multi.cuh"),
                {"sr_rasterize_single": _SINGLE_ARGS + _STREAM}),
-    "multi_host": ("g++", "rasterize_multi_host.cpp", ("rasterize_multi.cuh",),
-                   {"sr_rasterize_multi_host": _MULTI_ARGS}),
+    "multi_host": ("g++", "rasterize_multi_host.cpp", _MULTI_HEADERS,
+                   {"sr_rasterize_multi_host": _MULTI_ARGS + [ctypes.c_int] * 2,
+                    "sr_bin_multi_host": _BIN_ARGS + [ctypes.c_void_p] * 4 + _BIN_SHAPE}),
     "single_host": ("g++", "rasterize_single_host.cpp",
                     ("rasterize_single.cuh", "rasterize_multi.cuh"),
                     {"sr_rasterize_single_host": _SINGLE_ARGS}),

@@ -7,15 +7,19 @@ One binning and one kernel pass produce the winner maps (and, with
 top/2, ..., top >> (n_levels-1)``, each bit-equal to the dense oracle
 ``ops/rasterize.py::rasterize_winners`` at that size.
 
-- ``build_bins_multi``: plain torch on the tensor's device (sort,
-  ``searchsorted``, gathers), as the JAX package leaves binning to XLA.
-- ``rasterize_winners_multi``: the wrapper. A CUDA tensor goes to the kernel
-  (``csrc/rasterize_multi.cu``, launched by ``launch_rasterize_multi``); a
-  CPU tensor goes to the plain version.
+- ``build_bins_multi``: the plain version of the binning, plain torch
+  (sort, ``searchsorted``, gathers) as the JAX package leaves binning to
+  XLA; the tests' and ``chip_smoke.py``'s reference, not on any path.
+- ``launch_bin_multi``: the binning on the card, hand-written CUDA passes
+  (``csrc/rasterize_multi.cu``, per-triangle code in ``csrc/bin_multi.cuh``).
+- ``rasterize_winners_multi``: the wrapper. A CUDA tensor goes to
+  ``launch_bin_multi`` and the kernel (``launch_rasterize_multi``); a CPU
+  tensor goes to the plain version.
 - ``rasterize_winners_multi_ref``: the plain version, dense search per
   level then ``_interp_from_win``.
-- ``rasterize_winners_multi_host``: the kernel's math built for the host
-  (``csrc/rasterize_multi_host.cpp``), for the CPU tests.
+- ``bin_multi_host``, ``rasterize_bins_multi_host``,
+  ``rasterize_winners_multi_host``: the card's binning and kernel built for
+  the host (``csrc/rasterize_multi_host.cpp``), for the CPU tests.
 """
 
 from __future__ import annotations
@@ -235,41 +239,112 @@ def _check_inputs(v, attrs):
             raise ValueError("attrs and v must be on one device")
 
 
-def _check_bins(dat, ids, starts, top: int, tile: int) -> int:
-    """Validate ``build_bins_multi``'s output for the kernel -> n_attr."""
-    B, nf, R = dat.shape
-    n_attr, rem = divmod(R - 9, 3)
+def row_words(n_attr: int) -> int:
+    """Words of one row of ``launch_bin_multi``'s output: the 9 corner
+    floats, the 3C corner attributes and the id's bits, padded to a multiple
+    of 16 bytes (``csrc/rasterize_multi.cuh::row_words``)."""
+    return (9 + 3 * n_attr + 1 + 3) // 4 * 4
+
+
+def _bin_args(v, tri, top: int, n_levels: int, tile: int, attrs):
+    """The binning's inputs as its passes read them -> (v f32, tri i64,
+    attrs f32 or None, K), all contiguous on ``v``'s device."""
+    v = v.detach().float().contiguous()
+    tri = torch.as_tensor(tri, device=v.device).long().contiguous()
+    if tri.ndim != 2 or tri.shape[-1] != 3:
+        raise ValueError(f"tri must be [nf, 3], got {tuple(tri.shape)}")
+    if not 1 <= n_levels <= 11:
+        raise ValueError(f"{n_levels} levels: the kernel takes 1 to 11")
+    ab = None if attrs is None else attrs.detach().float().contiguous()
+    return v, tri, ab, MULTI_N_TIERS * (top // tile) ** 2
+
+
+def _bin_outputs(B: int, nf: int, K: int, n_attr: int, device):
+    """(keys, starts, rows, slots) of the binning, allocated and not
+    written."""
+    return (torch.empty((B, nf), dtype=torch.int32, device=device),
+            torch.empty((B, K + 1), dtype=torch.int32, device=device),
+            torch.empty((B, nf, row_words(n_attr)), dtype=torch.float32, device=device),
+            torch.empty((B, nf), dtype=torch.int32, device=device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_bin_multi(v, tri, top: int, n_levels: int, perspective: bool, eps: float,
+                     tile: int, attrs=None):
+    """Bin on the card with the hand-written passes of
+    ``csrc/rasterize_multi.cu`` (a zeroed count buffer, then classify, scan
+    and scatter: four launches, no host synchronisation, no sort) ->
+    (rows ``[B, nf, row_words(C)]`` f32, starts ``[B, 4*ntiles+1]`` i32,
+    slots ``[B, nf]`` i32, keys ``[B, nf]`` i32).
+
+    The keys and ``starts`` are ``build_bins_multi``'s; row ``p`` holds what
+    its ``dat[:, p]`` holds, then the id's bits at column ``9 + 3C``, for
+    the valid prefix ``[0, starts[:, -1])`` only; ``slots[b, id]`` is the
+    row of valid triangle ``id`` (the kernel reads its winners' values
+    there). The order within a segment varies from run to run, which the
+    kernel's result does not depend on."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    if v.device.type != "cuda":
+        raise ValueError(f"the card's binning takes CUDA tensors, got {v.device}")
+    _check_inputs(v, attrs)
+    v, tri, ab, K = _bin_args(v, tri, top, n_levels, tile, attrs)
+    B, nv, _ = v.shape
+    nf = tri.shape[0]
+    n_attr = 0 if ab is None else ab.shape[-1]
+    counts = torch.zeros((B, K), dtype=torch.int32, device=v.device)
+    rank = torch.empty((B, nf), dtype=torch.int32, device=v.device)
+    keys, starts, rows, slots = _bin_outputs(B, nf, K, n_attr, v.device)
+    lib = library("multi")
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = lib.sr_bin_multi(v.data_ptr(), tri.data_ptr(), _ptr(ab), counts.data_ptr(),
+                          keys.data_ptr(), rank.data_ptr(), starts.data_ptr(), rows.data_ptr(),
+                          slots.data_ptr(), B, nv, nf, top, n_levels, tile, n_attr,
+                          int(perspective), eps, stream)
+    if rc != 0:
+        raise RuntimeError("bin_multi launch failed: " + lib.sr_error_string(rc).decode())
+    return rows, starts, slots, keys
+
+
+def _check_bins(rows, starts, slots, top: int, tile: int, n_attr: int, device_type: str):
+    """Validate the binning's output for the kernel (or its host build)."""
+    B, nf = rows.shape[:2]
     ntiles = (top // tile) ** 2
-    expect = ((dat, torch.float32, (B, nf, R)), (ids, torch.int32, (B, nf)),
-              (starts, torch.int32, (B, MULTI_N_TIERS * ntiles + 1)))
+    if not 0 <= n_attr <= 7:
+        raise ValueError(f"{n_attr} attribute channels: the kernel takes 0 to 7")
+    expect = ((rows, torch.float32, (B, nf, row_words(n_attr))),
+              (starts, torch.int32, (B, MULTI_N_TIERS * ntiles + 1)),
+              (slots, torch.int32, (B, nf)))
     for t, dt, shape in expect:
-        if t.device.type != "cuda" or t.device != dat.device:
-            raise ValueError(f"kernel inputs must lie on one CUDA device, got {t.device}")
+        if t.device.type != device_type or t.device != rows.device:
+            raise ValueError(f"kernel inputs must lie on one {device_type} device, "
+                             f"got {t.device}")
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"kernel input {t.dtype} {tuple(t.shape)} (contiguous: "
                              f"{t.is_contiguous()}), expected contiguous {dt} {shape}")
-    if rem or not 0 <= n_attr <= 7:
-        raise ValueError(f"dat rows {R}: expected 9 + 3C with C <= 7")
-    return n_attr
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned for the kernel's 16-byte loads")
 
 
-def launch_rasterize_multi(dat, ids, starts, top: int, n_levels: int, tile: int,
-                           perspective: bool, eps: float):
-    """Launch the Hopper kernel on binned triangles (``build_bins_multi``)
+def launch_rasterize_multi(rows, starts, slots, top: int, n_levels: int, tile: int,
+                           n_attr: int, perspective: bool, eps: float):
+    """Launch the Hopper kernel on the card's binning (``launch_bin_multi``)
     on the current stream -> flat level-major (values, winners). Counts the
     launch in ``rasterize_winners_multi.launches``; raises when the launch
     is refused."""
     from stylerenderer_tpu_torch.ops._build import library
 
-    n_attr = _check_bins(dat, ids, starts, top, tile)
+    _check_bins(rows, starts, slots, top, tile, n_attr, "cuda")
     lib = library("multi")
-    B = dat.shape[0]
-    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, dat.device)
-    stream = torch.cuda.current_stream(dat.device).cuda_stream
+    B = rows.shape[0]
+    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.sr_rasterize_multi(
-        dat.data_ptr(), ids.data_ptr(), starts.data_ptr(), vals.data_ptr(),
-        wins.data_ptr(), B, dat.shape[1], top, n_levels, tile, n_attr,
-        int(perspective), eps, stream)
+        rows.data_ptr(), starts.data_ptr(), slots.data_ptr(), vals.data_ptr(), wins.data_ptr(), B,
+        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), eps, stream)
     if rc != 0:
         raise RuntimeError("rasterize_multi launch failed: "
                            + lib.sr_error_string(rc).decode())
@@ -287,9 +362,9 @@ def rasterize_winners_multi(v, tri, top: int, n_levels: int,
     list of ``(values [B, s, s, C] f32, winners [B, s, s] i32)``, values 0
     on background.
 
-    A CUDA ``v`` launches the kernel (and counts the launch in
-    ``rasterize_winners_multi.launches``); a CPU ``v`` takes the plain
-    version. There is no fallback between the two.
+    A CUDA ``v`` is binned on the card (``launch_bin_multi``) and launches
+    the kernel (counted in ``rasterize_winners_multi.launches``); a CPU
+    ``v`` takes the plain version. There is no fallback between the two.
     """
     tile = _check_levels(top, n_levels, tile)
     _check_inputs(v, attrs)
@@ -298,36 +373,76 @@ def rasterize_winners_multi(v, tri, top: int, n_levels: int,
                                            eps, attrs, tile)
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
-    dat, ids, starts = build_bins_multi(v, tri, top, n_levels, perspective, eps,
-                                        tile, attrs)
-    vals, wins = launch_rasterize_multi(dat, ids, starts, top, n_levels, tile,
-                                        perspective, eps)
     n_attr = 0 if attrs is None else attrs.shape[-1]
+    rows, starts, slots, _ = launch_bin_multi(v, tri, top, n_levels, perspective, eps, tile,
+                                              attrs)
+    vals, wins = launch_rasterize_multi(rows, starts, slots, top, n_levels, tile, n_attr,
+                                        perspective, eps)
     return split_levels(vals, wins, v.shape[0], top, n_levels, n_attr)
 
 
 rasterize_winners_multi.launches = 0
 
 
+def bin_multi_host(v, tri, top: int, n_levels: int, perspective: bool, eps: float,
+                   tile: int, attrs=None):
+    """The card's binning compiled for the host (g++), on CPU tensors ->
+    ``launch_bin_multi``'s (rows, starts, slots, keys); each segment in
+    ascending id order."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    _check_inputs(v, attrs)
+    v, tri, ab, K = _bin_args(v.cpu(), tri, top, n_levels, tile,
+                              None if attrs is None else attrs.cpu())
+    B, nv, _ = v.shape
+    nf = tri.shape[0]
+    n_attr = 0 if ab is None else ab.shape[-1]
+    keys, starts, rows, slots = _bin_outputs(B, nf, K, n_attr, "cpu")
+    rc = library("multi_host").sr_bin_multi_host(
+        v.data_ptr(), tri.data_ptr(), _ptr(ab), keys.data_ptr(), starts.data_ptr(),
+        rows.data_ptr(), slots.data_ptr(), B, nv, nf, top, n_levels, tile, n_attr,
+        int(perspective), ctypes.c_float(eps))
+    if rc != 0:
+        raise RuntimeError("host bin_multi rejected its arguments")
+    return rows, starts, slots, keys
+
+
+def rasterize_bins_multi_host(rows, starts, slots, top: int, n_levels: int, tile: int,
+                              n_attr: int, perspective: bool = False, eps: float = 1e-6,
+                              round_size: int = 0, queue: int = 0,
+                              stats: dict | None = None):
+    """The kernel's per-tile schedule and candidate math compiled for the
+    host (g++) on binned rows (``bin_multi_host``) -> per level (values,
+    winners) or winners, as ``rasterize_winners_multi``. ``round_size``
+    candidates per round and a queue of ``queue`` coarse-level items (0:
+    the kernel's own, ``csrc/rasterize_multi.cuh::kRound``, ``kQueue``);
+    ``stats["flushes"]`` gets the number of times a full queue was worked
+    through between rounds."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    _check_bins(rows, starts, slots, top, tile, n_attr, "cpu")
+    B = rows.shape[0]
+    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, "cpu")
+    rc = library("multi_host").sr_rasterize_multi_host(
+        rows.data_ptr(), starts.data_ptr(), slots.data_ptr(), vals.data_ptr(), wins.data_ptr(), B,
+        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), ctypes.c_float(eps),
+        round_size, queue)
+    if rc < 0:
+        raise RuntimeError("host rasterize_multi rejected its arguments")
+    if stats is not None:
+        stats["flushes"] = rc
+    return split_levels(vals, wins, B, top, n_levels, n_attr)
+
+
 def rasterize_winners_multi_host(v, tri, top: int, n_levels: int,
                                  perspective: bool = False, eps: float = 1e-6,
                                  attrs=None, tile: int | None = None):
-    """The kernel's candidate math and tile bookkeeping compiled for the host
-    (g++), on CPU tensors: same binning, same output as the kernel."""
-    from stylerenderer_tpu_torch.ops._build import library
-
+    """The card's binning and kernel compiled for the host (g++), on CPU
+    tensors: the same output as ``rasterize_winners_multi`` on the card."""
     tile = _check_levels(top, n_levels, tile)
     _check_inputs(v, attrs)
-    lib = library("multi_host")
-    B = v.shape[0]
+    rows, starts, slots, _ = bin_multi_host(v, tri, top, n_levels, perspective, eps, tile,
+                                            attrs)
     n_attr = 0 if attrs is None else attrs.shape[-1]
-    dat, ids, starts = build_bins_multi(v.cpu(), tri, top, n_levels, perspective,
-                                        eps, tile, None if attrs is None else attrs.cpu())
-    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, "cpu")
-    rc = lib.sr_rasterize_multi_host(
-        dat.data_ptr(), ids.data_ptr(), starts.data_ptr(), vals.data_ptr(),
-        wins.data_ptr(), B, dat.shape[1], top, n_levels, tile, n_attr,
-        int(perspective), ctypes.c_float(eps))
-    if rc != 0:
-        raise RuntimeError("host rasterize_multi rejected its arguments")
-    return split_levels(vals, wins, B, top, n_levels, n_attr)
+    return rasterize_bins_multi_host(rows, starts, slots, top, n_levels, tile, n_attr,
+                                     perspective, eps)

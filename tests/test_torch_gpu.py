@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, single_case
+from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, keys_of_bins, single_case
+
+import stylerenderer_tpu_torch.ops.rasterize_multi as rasterize_multi_mod
 
 from stylerenderer_tpu_torch.face3d import (
     mesh_point_normal, random_apply_pose3D, synthetic_face,
 )
 from stylerenderer_tpu_torch.ops.rasterize import rasterize, rasterize_pyramid_fused
 from stylerenderer_tpu_torch.ops.rasterize_multi import (
+    build_bins_multi,
+    launch_bin_multi,
     rasterize_winners_multi,
     rasterize_winners_multi_ref,
 )
@@ -56,6 +60,44 @@ def test_cuda_kernel_bitexact(cuda, case, with_attrs):
                                           err_msg=f"val {k}")
         else:
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(), err_msg=f"win {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_cuda_binning_matches_plain(cuda, case):
+    """The card's binning passes: the plain binning's keys and starts, the
+    same ids in every segment, and each id's slot."""
+    v, tri, attrs, top, n_levels, tile, persp = kernel_case(case)
+    v, tri, attrs = (torch.from_numpy(x).to(cuda) for x in (v, tri, attrs))
+    rows, starts, slots, keys = launch_bin_multi(v, tri, top, n_levels, persp, 1e-6, tile, attrs)
+    dat, ids, pstarts = build_bins_multi(v, tri, top, n_levels, persp, 1e-6, tile, attrs)
+    pstarts, ids = pstarts.cpu().numpy(), ids.cpu().numpy()
+    np.testing.assert_array_equal(starts.cpu().numpy(), pstarts)
+    np.testing.assert_array_equal(keys.cpu().numpy(), keys_of_bins(ids, pstarts))
+    rid = rows[..., dat.shape[-1]].contiguous().view(torch.int32).cpu().numpy()
+    slots = slots.cpu().numpy()
+    for b in range(rows.shape[0]):
+        for lo, hi in zip(pstarts[b, :-1], pstarts[b, 1:]):
+            assert set(rid[b, lo:hi]) == set(ids[b, lo:hi])
+        n = pstarts[b, -1]
+        np.testing.assert_array_equal(slots[b, rid[b, :n]], np.arange(n))
+
+
+@pytest.mark.gpu
+def test_cuda_call_never_takes_plain_binning(cuda, monkeypatch):
+    """A CUDA call bins on the card: the plain binning and the plain
+    version are never reached, even when patched to fail."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path reached a plain version")
+
+    v, tri, attrs, top, n_levels, tile, persp = kernel_case("random")
+    v, tri, attrs = (torch.from_numpy(x).to(cuda) for x in (v, tri, attrs))
+    ref = rasterize_winners_multi_ref(v, tri, top, n_levels, persp, attrs=attrs, tile=tile)
+    monkeypatch.setattr(rasterize_multi_mod, "build_bins_multi", refuse)
+    monkeypatch.setattr(rasterize_multi_mod, "rasterize_winners_multi_ref", refuse)
+    out = rasterize_winners_multi(v, tri, top, n_levels, persp, attrs=attrs, tile=tile)
+    for (a, wa), (b, wb) in zip(out, ref):
+        assert torch.equal(wa, wb) and torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -9,8 +9,10 @@ kernel's math against the port's own plain version.
   kernel in interpret mode: winners equal, values to the interpret mode's
   own rounding;
 - first-order gradients of ``rasterize_pyramid_fused`` against ``jax.grad``;
-- the host build (g++) of the kernel's math, bit for bit against the
-  plain version (the CUDA kernel itself: ``test_torch_gpu.py``).
+- the host build (g++) of the card's binning against the plain binning
+  ``build_bins_multi``, and of the kernel's per-tile logic and math, bit
+  for bit against the plain version, in any order within a segment (the
+  CUDA passes themselves: ``test_torch_gpu.py``).
 
 Inputs are made with numpy from seeds and handed to both packages.
 """
@@ -42,6 +44,7 @@ from stylerenderer_tpu_torch.ops.rasterize import (
 from torch_meshes import (
     KERNEL_CASES,
     kernel_case,
+    keys_of_bins,
     mesh_big_triangles,
     mesh_degenerate,
     mesh_random,
@@ -50,7 +53,10 @@ from torch_meshes import (
 from stylerenderer_tpu_torch.ops.rasterize_multi import (
     MULTI_N_TIERS,
     _sparse_sp,
+    bin_multi_host,
     build_bins_multi,
+    launch_bin_multi,
+    rasterize_bins_multi_host,
     rasterize_winners_multi,
     rasterize_winners_multi_host,
     rasterize_winners_multi_ref,
@@ -209,6 +215,12 @@ def test_cpu_wrapper_takes_plain_version():
     assert rasterize_winners_multi.launches == before  # no kernel on the CPU
 
 
+def test_card_binning_refuses_cpu_tensors():
+    v, tri = mesh_random(False, seed=3, nv=50, nf=160, scale=0.6)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_bin_multi(_t(v), _t(tri), 32, 3, False, 1e-6, 16)
+
+
 @pytest.mark.parametrize("lo,hi", [(-1.1, 1.1), (-100.0, 100.0), (-1e-3, 1e-3)])
 def test_level_rescale_equals_projection(lo, hi):
     """The kernel stores corners projected at the top level and rescales
@@ -306,11 +318,104 @@ def host_build():
     return library("multi_host")
 
 
+def _host_bins_case(case):
+    """-> (v, tri, attrs, top, n_levels, tile, perspective): the
+    ``MULTI_MESHES`` meshes at the layout of test_build_bins_matches_jax,
+    or a ``KERNEL_CASES`` entry."""
+    if case.startswith("multi:"):
+        make, persp = MULTI_MESHES[case[6:]]
+        v, tri = make()
+        return v, tri, np.random.RandomState(8).randn(*v.shape).astype(np.float32), 64, 5, 16, persp
+    return kernel_case(case)
+
+
+@pytest.mark.parametrize("case", [f"multi:{m}" for m in sorted(MULTI_MESHES)]
+                         + sorted(KERNEL_CASES))
+def test_host_binning_matches_plain(host_build, case):
+    """The card's binning passes built for the host: the plain binning's
+    keys and starts, the same ids in every segment, the same row (corner
+    px, py, z, corner attributes) for every id, and each id's slot."""
+    v, tri, attrs, top, n_levels, tile, persp = _host_bins_case(case)
+    rows, starts, slots, keys = bin_multi_host(_t(v), _t(tri), top, n_levels, persp, 1e-6,
+                                               tile, _t(attrs))
+    dat, ids, pstarts = build_bins_multi(_t(v), _t(tri), top, n_levels, persp, 1e-6, tile,
+                                         _t(attrs))
+    np.testing.assert_array_equal(starts.numpy(), pstarts.numpy())
+    np.testing.assert_array_equal(keys.numpy(), keys_of_bins(ids.numpy(), pstarts.numpy()))
+    R = dat.shape[-1]
+    rid = rows[..., R].contiguous().view(torch.int32).numpy()
+    ids = ids.numpy()
+    for b in range(v.shape[0]):
+        st = pstarts[b].numpy()
+        for lo, hi in zip(st[:-1], st[1:]):
+            assert set(rid[b, lo:hi]) == set(ids[b, lo:hi])
+        n = st[-1]
+        mine = rows[b, :n, :R].numpy()[np.argsort(rid[b, :n])]
+        plain = dat[b, :n].numpy()[np.argsort(ids[b, :n])]
+        np.testing.assert_array_equal(mine, plain)
+        np.testing.assert_array_equal(slots[b].numpy()[rid[b, :n]], np.arange(n))
+    assert starts[:, -1].min() > 0
+
+
+@pytest.mark.parametrize("with_attrs", [False, True])
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_host_kernel_order_independent(host_build, case, with_attrs):
+    """The card's atomic slots order each segment differently from run to
+    run: the kernel's per-tile logic (host build) on every segment reversed,
+    each id's slot following its row, gives the same winners and values."""
+    v, tri, attrs, top, n_levels, tile, persp = kernel_case(case)
+    attrs = _t(attrs) if with_attrs else None
+    n_attr = 0 if attrs is None else attrs.shape[-1]
+    rows, starts, slots, _ = bin_multi_host(_t(v), _t(tri), top, n_levels, persp, 1e-6, tile,
+                                            attrs)
+    rev, rev_slots = rows.clone(), slots.clone()
+    for b in range(rows.shape[0]):
+        st = starts[b].tolist()
+        for lo, hi in zip(st[:-1], st[1:]):
+            rev[b, lo:hi] = rows[b, lo:hi].flip(0)
+        n = st[-1]
+        ids = rev[b, :n, 9 + 3 * n_attr].contiguous().view(torch.int32).long()
+        rev_slots[b, ids] = torch.arange(n, dtype=torch.int32)
+    assert not torch.equal(rev, rows)
+    args = (top, n_levels, tile, n_attr, persp, 1e-6)
+    out = rasterize_bins_multi_host(rows, starts, slots, *args)
+    out_rev = rasterize_bins_multi_host(rev, starts, rev_slots, *args)
+    for k, (a, b) in enumerate(zip(out, out_rev)):
+        for x, y in zip(a, b) if with_attrs else [(a, b)]:
+            np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=f"level {k}")
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_host_kernel_queue_flush(host_build, case):
+    """The kernel's per-tile schedule with its coarse-level queue worked
+    through between rounds: rounds of 4 candidates and a queue that holds
+    one round's pushes (a flush after nearly every round) give the same
+    winners and values as the kernel's own sizes, and the ``dense_tile``
+    case fills the kernel's own queue several times."""
+    v, tri, attrs, top, n_levels, tile, persp = kernel_case(case)
+    rows, starts, slots, _ = bin_multi_host(_t(v), _t(tri), top, n_levels, persp, 1e-6, tile,
+                                            _t(attrs))
+    args = (rows, starts, slots, top, n_levels, tile, attrs.shape[-1], persp, 1e-6)
+    card, small = {}, {}
+    out = rasterize_bins_multi_host(*args, stats=card)
+    out_small = rasterize_bins_multi_host(*args, round_size=4, queue=4 * (n_levels - 1),
+                                          stats=small)
+    for k, (a, b) in enumerate(zip(out, out_small)):
+        np.testing.assert_array_equal(a[1].numpy(), b[1].numpy(), err_msg=f"win {k}")
+        np.testing.assert_array_equal(a[0].numpy(), b[0].numpy(), err_msg=f"val {k}")
+    assert small["flushes"] > 0
+    if case == "dense_tile":
+        assert card["flushes"] >= 2 * v.shape[0]
+    with pytest.raises(RuntimeError, match="rejected"):
+        rasterize_bins_multi_host(*args, round_size=4, queue=4 * (n_levels - 1) - 1)
+
+
 @pytest.mark.parametrize("with_attrs", [False, True])
 @pytest.mark.parametrize("case", sorted(KERNEL_CASES) + ["sphere"])
 def test_host_kernel_math_bitexact(host_build, case, with_attrs):
-    """The kernel's candidate math and tile bookkeeping (g++, -ffp-contract=off)
-    equal the plain version bit for bit at every level."""
+    """The card's binning and the kernel's per-tile logic and candidate math
+    (g++, -ffp-contract=off) equal the plain version bit for bit at every
+    level."""
     v, tri, attrs, top, n_levels, tile, persp = _host_case(case)
     attrs = _t(attrs) if with_attrs else None
     host = rasterize_winners_multi_host(_t(v), _t(tri), top, n_levels, persp,

@@ -59,9 +59,78 @@ def mesh_degenerate():
     return v, tri
 
 
+def mesh_lattice(seed=0, B=2, top=64, nf=240):
+    """Small triangles (and a few larger ones) whose corners lie exactly on
+    the pixel lattice of some level k <= 4 of a ``top`` px pyramid, many on
+    tile and warp-rectangle edges at that level: corner px at level k is
+    ``m``, so its NDC x is ``(m + 0.5) * 2^k * 2 / top - 1``, exact in f32.
+    Each triangle has its own three vertices; half face away."""
+    rng = np.random.RandomState(seed)
+    v = np.zeros((B, 3 * nf, 3), np.float32)
+    for b in range(B):
+        for f in range(nf):
+            k = rng.randint(0, 5)
+            s = top >> k
+            edges = [0, 1, s // 2 - 1, s // 2, s - 2, s - 1, -1, s]
+            anchor = [rng.choice(edges) if rng.rand() < 0.6 else rng.randint(-1, s + 1)
+                      for _ in range(2)]
+            reach = 24 if rng.rand() < 0.1 else 3
+            for c in range(3):
+                m = np.asarray(anchor) + (rng.randint(0, reach, 2) if c else 0)
+                x = (m[0] + 0.5) * (1 << k) * 2.0 / top - 1.0
+                y = 1.0 - (m[1] + 0.5) * (1 << k) * 2.0 / top
+                v[b, 3 * f + c] = (x, y, rng.randn())
+    tri = np.arange(3 * nf, dtype=np.int32).reshape(nf, 3)
+    return v, tri
+
+
+def mesh_dense_tile(seed=0, B=2, top=64, nf=4000, size=12.0):
+    """``nf`` triangles of up to ``size`` px stacked over one 16 px tile of a
+    ``top`` px image (pixels 16..31, which holds the center of the 1 px
+    level), each with its own vertices and a random depth: thousands of
+    candidates in one tile, most with coarse levels to queue, so the
+    kernel's queue of coarse-level work fills and is worked through several
+    times per tile."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(16.0, 32.0, (B, nf, 1, 2))
+    m = c + rng.uniform(-size / 2, size / 2, (B, nf, 3, 2))
+    # every triangle facing front (the winding of mesh_degenerate's first)
+    d1, d2 = m[..., 1, :] - m[..., 0, :], m[..., 2, :] - m[..., 0, :]
+    back = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0] > 0
+    m[back] = m[back][:, ::-1]
+    x = (m[..., 0] + 0.5) * 2.0 / top - 1.0
+    y = 1.0 - (m[..., 1] + 0.5) * 2.0 / top
+    z = np.repeat(rng.randn(B, nf, 1), 3, -1)
+    v = np.stack([x, y, z], -1).reshape(B, 3 * nf, 3).astype(np.float32)
+    tri = np.arange(3 * nf, dtype=np.int32).reshape(nf, 3)
+    return v, tri
+
+
+def mesh_ties_nan():
+    """Depth ties between -0.0 and +0.0, and a NaN vertex: a small triangle
+    at z = +0.0 (id 0) inside two copies of a big one at z = -0.0 (id 1)
+    and +0.0 (id 2): all three tie, so id 0 wins inside the small one and
+    id 1 elsewhere (a z-test that put -0.0 below +0.0 would give id 2);
+    then a triangle in front with a NaN x (id 3), which is invalid. (A NaN
+    depth is left out: the dense oracle takes the max over a chunk of
+    triangles, so a NaN there hides the other triangles of its chunk.)"""
+    big = [[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]]
+    v = [[0.1, 0.1, 0.0], [0.3, 0.1, 0.0], [0.2, 0.3, 0.0]]
+    for z in (-0.0, 0.0):
+        v += [[x, y, z] for x, y in big]
+    v += [[-0.5, -0.5, 3.0], [np.nan, -0.5, 3.0], [0.0, 0.5, 3.0]]
+    v = np.asarray(v, np.float32)
+    v = np.stack([v, v + np.asarray([0.05, -0.03, 0.0], np.float32)])
+    tri = np.arange(len(v[0]), dtype=np.int32).reshape(-1, 3)
+    return v, tri
+
+
 # (mesh function, top, n_levels, tile, perspective): the kernel's cases,
 # from the tile-16 main-path layout with its sparse coarse levels to tiles
-# 8 and 32, perspective, degenerate triangles and the XL tier
+# 8 and 32, perspective, degenerate triangles, the XL tier and corners on
+# the pixel lattice of the coarse levels (bboxes that touch tile edges),
+# depth ties between -0.0 and +0.0, a NaN vertex, and thousands of
+# triangles in one tile (the kernel's coarse-level queue fills)
 KERNEL_CASES = {
     "random": (lambda: mesh_random(False, seed=3, nv=50, nf=160, scale=0.6), 32, 6, 16, False),
     "random_persp": (lambda: mesh_random(True, seed=3, nv=50, nf=160, scale=0.6), 32, 5, 16,
@@ -74,6 +143,9 @@ KERNEL_CASES = {
                      False),
     "degenerate": (mesh_degenerate, 16, 2, 16, False),
     "big_triangles": (mesh_big_triangles, 32, 3, 16, False),
+    "lattice": (mesh_lattice, 64, 7, 16, False),
+    "ties_nan": (mesh_ties_nan, 32, 4, 16, False),
+    "dense_tile": (mesh_dense_tile, 64, 7, 16, False),
 }
 
 
@@ -83,6 +155,19 @@ def kernel_case(name):
     v, tri = make()
     attrs = np.random.RandomState(8).randn(*v.shape).astype(np.float32)
     return v, tri, attrs, top, n_levels, tile, persp
+
+
+def keys_of_bins(ids, starts):
+    """Per-triangle sort keys [B, nf] of a binning's sorted ids [B, nf] and
+    segment starts [B, K+1]: the segment of each triangle's sorted position,
+    K past the valid prefix (numpy arrays)."""
+    B, nf = ids.shape
+    K = starts.shape[1] - 1
+    keys = np.empty((B, nf), np.int64)
+    for b in range(B):
+        seg = np.searchsorted(starts[b], np.arange(nf), side="right") - 1
+        keys[b, ids[b]] = np.minimum(seg, K)
+    return keys
 
 
 # (mesh function, h, w, tile, perspective): the single-level kernel's
