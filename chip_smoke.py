@@ -18,7 +18,13 @@ entry points a user calls, and prints what it measured:
 
 K1 is timed at the ``each`` shapes (7 levels, C=3) and at one level,
 with its binning on the card held against the plain binning
-``build_bins_multi`` (keys and starts equal) and timed beside it.
+``build_bins_multi`` (keys and starts equal) and timed beside it. K2 is
+timed at tiles 8, 16 and 32 on the synth writer's mesh and on the
+production mesh at 256 px (and at 512 px), its binning on the card held
+against the plain binning ``build_bins`` and timed beside it, with the
+kernel's launch shape. Each card binning is timed by replaying its
+launches from a CUDA graph, so that the host's calls between them do not
+count, and also per call with the host in the loop.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every phase fails loudly; the last line is
@@ -71,6 +77,24 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time in ms of the launches ``fn`` makes: captured once in
+    a CUDA graph (its allocations and launch calls run once, at capture),
+    then ``iters`` replays timed with CUDA events, so no host work falls
+    between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, iters)
+    del graph
+    return ms
 
 
 def once_ms(torch, fn):
@@ -173,9 +197,11 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
     """K1 at these shapes (top TOP, tile TILE, values of ``norm`` or
     winners only): the card's binning held against the plain binning (keys
     and starts equal), then timed with CUDA events over many launches
-    after a warm-up: the plain binning, the card's binning, the kernel;
-    the bound from the plain binning's output; the kernel's launch shape
-    (threads, shared memory, registers, spills, resident blocks per SM)."""
+    after a warm-up: the plain binning, the card's binning (its launches
+    replayed from a CUDA graph, and per call with the host in the loop),
+    the kernel; the bound from the plain binning's output; the kernel's
+    launch shape (threads, shared memory, registers, spills, resident
+    blocks per SM)."""
     import ctypes
 
     from stylerenderer_tpu_torch.ops import _build
@@ -196,8 +222,10 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
                              "binning's")
     plain_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, n_levels, False,
                                                             EPS, TILE, attrs=norm), 5)
-    bins_ms = cuda_ms(torch, lambda: launch_bin_multi(vert, tri, TOP, n_levels, False, EPS,
-                                                      TILE, attrs=norm), 50)
+    def bin_multi():
+        return launch_bin_multi(vert, tri, TOP, n_levels, False, EPS, TILE, attrs=norm)
+    bins_ms = graph_ms(torch, bin_multi, 50)
+    bins_call_ms = cuda_ms(torch, bin_multi, 50)
     ms = cuda_ms(torch, lambda: launch_rasterize_multi(rows, cstarts, slots, TOP, n_levels, TILE,
                                                        n_attr, False, EPS), 50)
     bound_ms, by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP, n_levels,
@@ -207,15 +235,70 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
     if rc != 0:
         raise AssertionError(f"K1 launch shape query failed: {rc}")
     del dat, ids, rows, slots
-    return {"ms": ms, "bins_ms": bins_ms, "plain_bins_ms": plain_bins_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "bins_ms": bins_ms, "bins_call_ms": bins_call_ms,
+            "plain_bins_ms": plain_bins_ms, "bound_ms": bound_ms,
             "bound_by": by, "bytes": nbytes, "ops": ops, "pairs": pairs, "n_valid": n_valid,
             "binned": int(vert.shape[0] * tri.shape[0]),
             "shape": dict(zip(("threads", "dynamic_smem", "static_smem", "registers",
                                "local_bytes", "blocks_per_sm"), shape))}
 
 
+def k2_measure(torch, np, vert, tri, h, w, tile, keys_of_bins, ref=None):
+    """K2 at tile ``tile`` on an ``h x w`` image: the card's binning held
+    against the plain binning ``build_bins`` (keys and starts equal), the
+    kernel's winners against ``ref`` when given, then timed with CUDA
+    events after a warm-up: the plain binning, the card's binning (its
+    launches replayed from a CUDA graph, and per call with the host in the
+    loop), the kernel; the kernel's launch shape (threads, shared memory,
+    registers, spills, resident blocks per SM)."""
+    import ctypes
+
+    from stylerenderer_tpu_torch.ops import _build
+    from stylerenderer_tpu_torch.ops.rasterize_single import (
+        build_bins, launch_bin_single, launch_rasterize_single,
+    )
+
+    _, ids, starts = build_bins(vert, tri, h, w, False, EPS, tile)
+    rows, cstarts, keys = launch_bin_single(vert, tri, h, w, False, EPS, tile)
+    if not torch.equal(cstarts, starts):
+        raise AssertionError(f"K2 {h}x{w} tile {tile}: the card's starts differ from the plain "
+                             "binning's")
+    if not np.array_equal(keys.cpu().numpy(), keys_of_bins(ids.cpu().numpy(),
+                                                           starts.cpu().numpy())):
+        raise AssertionError(f"K2 {h}x{w} tile {tile}: the card's keys differ from the plain "
+                             "binning's")
+    del ids, starts
+    plain_bins_ms = cuda_ms(torch, lambda: build_bins(vert, tri, h, w, False, EPS, tile), 5)
+    def bin_single():
+        return launch_bin_single(vert, tri, h, w, False, EPS, tile)
+    bins_ms = graph_ms(torch, bin_single, 20)
+    bins_call_ms = cuda_ms(torch, bin_single, 20)
+
+    def run():
+        return launch_rasterize_single(rows, cstarts, h, w, tile, False, EPS)
+    if ref is not None:
+        compare_wins(run(), ref, f"K2 {h}x{w} tile {tile}")
+    ms = cuda_ms(torch, run, 20)
+    shape = (ctypes.c_int * 6)()
+    rc = _build.library("single").sr_rasterize_single_shape(tile, shape)
+    if rc != 0:
+        raise AssertionError(f"K2 launch shape query failed: {rc}")
+    return {"ms": ms, "bins_ms": bins_ms, "bins_call_ms": bins_call_ms,
+            "plain_bins_ms": plain_bins_ms,
+            "shape": dict(zip(("threads", "dynamic_smem", "static_smem", "registers",
+                               "local_bytes", "blocks_per_sm"), shape))}
+
+
+def k2_report(what: str, by_tile) -> str:
+    return f"{what}: " + "; ".join(
+        f"tile {t}: kernel {m['ms']:.4f} ms, card binning {m['bins_ms']:.4f} ms (graph replay; "
+        f"{m['bins_call_ms']:.4f} ms per call with the host in the loop), plain binning "
+        f"{m['plain_bins_ms']:.4f} ms, launch shape {m['shape']}" for t, m in by_tile.items())
+
+
 def k1_report(what: str, m) -> str:
-    return (f"{what}: kernel {m['ms']:.4f} ms, card binning {m['bins_ms']:.4f} ms (keys and "
+    return (f"{what}: kernel {m['ms']:.4f} ms, card binning {m['bins_ms']:.4f} ms (graph "
+            f"replay; {m['bins_call_ms']:.4f} ms per call with the host in the loop; keys and "
             f"starts equal to the plain binning's), plain binning {m['plain_bins_ms']:.4f} ms; "
             f"bound {m['bound_ms']:.4f} ms by {m['bound_by']} ({m['bytes']} bytes, {m['ops']} "
             f"f32 ops, {m['pairs']} bbox pairs, {m['n_valid']} valid of {m['binned']} binned "
@@ -283,10 +366,9 @@ def main() -> int:
     )
     from stylerenderer_tpu_torch.ops.rasterize_single import (
         build_bins,
-        launch_rasterize_single,
+        card_tile,
         rasterize_winners_single,
         rasterize_winners_single_ref,
-        tile_for,
     )
 
     kernels = {"rasterize_multi": rasterize_winners_multi,
@@ -370,13 +452,24 @@ def main() -> int:
     svert16 = random_apply_pose3D(g, synth_face(synth_face.random_input(BATCH, g)))
     ref16, synth_plain_ms = once_ms(
         torch, lambda: rasterize_winners_single_ref(svert16, synth_tri, TOP, TOP))
+    k2_synth = {}
     for tile in (8, 16, 32):
         max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
             rasterize_winners_single(svert16, synth_tri, TOP, TOP, tile=tile), ref16,
             f"K2 synth mesh B={BATCH} tile {tile}"))
+        k2_synth[tile] = k2_measure(torch, np, svert16, synth_tri, TOP, TOP, tile, keys_of_bins,
+                                    ref16)
     log(f"check: K2 synthetic_face(48, 96, 80, 29) ({synth_tri.shape[0]} triangles), {TOP}^2, "
-        f"B={BATCH}, tiles 8, 16, 32: bit-equal; plain version {synth_plain_ms:.1f} ms (once); "
-        f"covered {float((ref16 >= 0).float().mean()):.3f}")
+        f"B={BATCH}, tiles 8, 16, 32: bit-equal, the card's keys and starts "
+        f"equal to the plain binning's; plain version {synth_plain_ms:.1f} ms (once); covered "
+        f"{float((ref16 >= 0).float().mean()):.3f}")
+    dat, _, starts = build_bins(svert16, synth_tri, TOP, TOP, False, EPS, card_tile(TOP, TOP))
+    sb_ms, sb_by, nbytes, ops, pairs, n_valid = k2_bound(torch, dat, starts, TOP, TOP)
+    del dat, starts
+    log(k2_report(f"K2 on the synth mesh, {TOP}^2, B={BATCH}", k2_synth)
+        + f"; bound {sb_ms:.4f} ms by {sb_by} ({nbytes} bytes, {ops} f32 ops, {pairs} bbox "
+        f"pairs, {n_valid} valid of {svert16.shape[0] * synth_tri.shape[0]} binned triangles)")
+    del ref16
     ref2 = rasterize_winners_single_ref(vert2, tri, TOP, TOP)
     for tile in (8, 16):
         max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
@@ -532,12 +625,14 @@ def main() -> int:
     # both against their plain versions on the production mesh, B=16: the
     # input the unfused (K2) and fused (K1, one level, C=3) paths give them
     vert, norm, _ = mesh16
-    tile = tile_for(TOP, TOP)
+    tile = card_tile(TOP, TOP)
     ref16p, k2_plain_ms = once_ms(
         torch, lambda: rasterize_winners_single_ref(vert, tri, TOP, TOP))
     max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
         rasterize_winners_single(vert, tri, TOP, TOP), ref16p,
         f"K2 production mesh B={BATCH} tile {tile}"))
+    k2_prod = {t: k2_measure(torch, np, vert, tri, TOP, TOP, t, keys_of_bins, ref16p)
+               for t in (8, 16, 32)}
     del ref16p
     ref1, k1_one_plain_ms = once_ms(
         torch, lambda: rasterize_winners_multi_ref(vert, tri, TOP, 1, attrs=norm))
@@ -548,19 +643,28 @@ def main() -> int:
     log(f"check: K2 (tile {tile}) and K1 at one level with C=3 values, production mesh "
         f"{TOP}^2 B={BATCH}: bit-equal to their plain versions")
     dat, ids, starts = build_bins(vert, tri, TOP, TOP, False, EPS, tile)
-    k2_bins_ms = cuda_ms(torch, lambda: build_bins(vert, tri, TOP, TOP, False, EPS, tile), 5)
-    k2_ms = cuda_ms(torch, lambda: launch_rasterize_single(dat, ids, starts, TOP, TOP, tile,
-                                                           False, EPS), 20)
     k2b_ms, k2_by, nbytes, ops, pairs, n_valid = k2_bound(torch, dat, starts, TOP, TOP)
-    dat16, ids16, starts16 = build_bins(vert, tri, TOP, TOP, False, EPS, 16)
-    k2_t16_ms = cuda_ms(torch, lambda: launch_rasterize_single(dat16, ids16, starts16, TOP, TOP,
-                                                               16, False, EPS), 20)
+    k2 = k2_prod[tile]
+    del dat, ids, starts
+    log(f"K2 rasterize_single at {TOP}^2, B={BATCH}, production mesh, tile {tile} (the card "
+        f"path's): kernel {k2['ms']:.4f} ms, card binning {k2['bins_ms']:.4f} ms (graph "
+        f"replay; keys and starts equal to the plain binning's), plain binning "
+        f"{k2['plain_bins_ms']:.4f} ms; "
+        f"bound {k2b_ms:.4f} ms by {k2_by} ({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, "
+        f"{n_valid} valid of {vert.shape[0] * tri.shape[0]} binned triangles); plain version "
+        f"{k2_plain_ms:.1f} ms (same input, once)")
+    log(k2_report(f"K2 on the production mesh, {TOP}^2, B={BATCH}, bit-equal at every tile",
+                  k2_prod))
+    # 512 px: no plain version (it would take minutes); the tiles agree
+    big = 2 * TOP
+    k2_big = {t: k2_measure(torch, np, vert, tri, big, big, t, keys_of_bins)
+              for t in (8, 16, 32)}
+    outs = [rasterize_winners_single(vert, tri, big, big, tile=t) for t in (8, 16, 32)]
+    for t, o in zip((16, 32), outs[1:]):
+        compare_wins(o, outs[0], f"K2 {big}^2 tile {t} against tile 8")
+    del outs
+    log(k2_report(f"K2 on the production mesh, {big}^2, B={BATCH}, tiles agree", k2_big))
     k1_one = k1_measure(torch, np, vert, tri, 1, norm, keys_of_bins)
-    log(f"K2 rasterize_single at {TOP}^2, B={BATCH}, production mesh, tile {tile}: kernel "
-        f"{k2_ms:.4f} ms, binning {k2_bins_ms:.4f} ms; bound {k2b_ms:.4f} ms by {k2_by} "
-        f"({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid of "
-        f"{dat.shape[0] * dat.shape[1]} binned triangles); plain version {k2_plain_ms:.1f} ms "
-        f"(same input, once); tile 16: kernel {k2_t16_ms:.4f} ms")
     log(k1_report(f"K1 at one level on the same input (tile {TILE}, C=3, the fused downsample "
                   "path)", k1_one) + f"; plain version {k1_one_plain_ms:.1f} ms (once)")
 
@@ -634,11 +738,13 @@ def main() -> int:
         "replaces": "stylerenderer_tpu/ops/rasterize_pallas.py:364",
         "launches": launches("rasterize_single"),
         "max_abs_err": max_err["rasterize_single"],
-        "ms": k2_ms,
+        "ms": k2["ms"],
         "plain_ms": k2_plain_ms,
         "bound_ms": k2b_ms,
         "bound_by": k2_by,
         "library_ms": None,
+        "bins_ms": k2["bins_ms"],
+        "plain_bins_ms": k2["plain_bins_ms"],
     }]}))
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

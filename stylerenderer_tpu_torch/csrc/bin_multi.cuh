@@ -1,6 +1,7 @@
 // Per-triangle binning of the multi-level pyramid rasterizer, shared by the
 // card's binning passes (rasterize_multi.cu) and their host build
-// (rasterize_multi_host.cpp).
+// (rasterize_multi_host.cpp); the single-level binning (bin_single.cuh)
+// uses its projection, NaN-propagating min and max and rows.
 //
 // It makes exactly the decisions of ops/rasterize_multi.py::build_bins_multi
 // (after stylerenderer_tpu/ops/rasterize_pallas.py:645): the projection of
@@ -22,13 +23,14 @@ SR_HD float tmin(float a, float b) { return (a < b || a != a) ? a : b; }
 SR_HD float tmax(float a, float b) { return (a > b || a != a) ? a : b; }
 
 // Triangle t3 (three vertex ids) of the vertices vb [nv, 3] of one batch
-// item -> its corners px, py, z at the top level (a top x top image);
-// returns whether every id is in range and, in perspective, every corner
-// lies in front of the camera. Out-of-range ids read the clamped vertex.
-SR_HD bool project_tri(const float* vb, int nv, const long long* t3, int top, bool perspective,
-                       float eps, float px[3], float py[3], float z[3]) {
+// item -> its corners px, py, z in a w x h image (the multi-level kernel's
+// top level is top x top); returns whether every id is in range and, in
+// perspective, every corner lies in front of the camera. Out-of-range ids
+// read the clamped vertex.
+SR_HD bool project_tri(const float* vb, int nv, const long long* t3, int w, int h,
+                       bool perspective, float eps, float px[3], float py[3], float z[3]) {
   bool ok = true;
-  const float half = (float)top * 0.5f;
+  const float half_w = (float)w * 0.5f, half_h = (float)h * 0.5f;
   for (int c = 0; c < 3; ++c) {
     const long long i = t3[c];
     ok = ok && i >= 0 && i < nv;
@@ -43,8 +45,8 @@ SR_HD bool project_tri(const float* vb, int nv, const long long* t3, int top, bo
       ok = ok && front;
     }
     // FMA trap: (1 + x) * (w / 2) - 0.5 rounds the product, then the sum
-    px[c] = (1.0f + x) * half - 0.5f;
-    py[c] = (1.0f - y) * half - 0.5f;
+    px[c] = (1.0f + x) * half_w - 0.5f;
+    py[c] = (1.0f - y) * half_h - 0.5f;
     z[c] = zz;
   }
   return ok;

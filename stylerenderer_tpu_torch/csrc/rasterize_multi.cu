@@ -12,7 +12,8 @@
 // one thread per (batch item, triangle) into its key tier*ntiles + home
 // (bin_multi.cuh, the decisions of ops/rasterize_multi.py::build_bins_multi)
 // and take a slot in its segment with atomicAdd; scan the counts into
-// starts [B, 4*ntiles + 1]; scatter every valid triangle's row: corner px,
+// starts [B, 4*ntiles + 1] (both in bin_passes.cuh, shared with the
+// single-level binning); scatter every valid triangle's row: corner px,
 // py, z at the top level, 3C corner attributes, the id's bits, padded to 16
 // bytes (sr::row_words). The order within a segment varies from run to run;
 // the result does not, since sr::beats is a total order on (depth, id) and
@@ -66,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include "bin_multi.cuh"
+#include "bin_passes.cuh"
 #include "rasterize_multi.cuh"
 
 namespace {
@@ -77,9 +79,7 @@ namespace {
 constexpr int kThreads = sr::kRound;
 constexpr int kMinBlocks = 4;
 constexpr int kQueue = sr::kQueue;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBinThreads = 256;
-constexpr int kScanThreads = 1024;
 
 // ---- binning ----------------------------------------------------------------
 
@@ -93,57 +93,10 @@ __global__ void bin_classify(const float* __restrict__ v, const long long* __res
   const int K = sr::kTiers * (top / tile) * (top / tile);
   float px[3], py[3], z[3];
   const bool ok = sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top,
-                                  perspective != 0, eps, px, py, z);
+                                  top, perspective != 0, eps, px, py, z);
   const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps);
   keys[i] = key;
-  if (key < K) {
-    // one atomicAdd per run of equal keys in the warp: neighbouring
-    // triangles of a mesh mostly share a home tile
-    const unsigned mask = __activemask();
-    const int seg = b * K + key, lane = threadIdx.x & 31;
-    const unsigned peers = __match_any_sync(mask, seg);
-    const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(&counts[seg], __popc(peers));
-    base = __shfl_sync(peers, base, leader);
-    rank[i] = base + __popc(peers & ((1u << lane) - 1u));
-  }
-}
-
-// One block per batch item: starts[b] = exclusive scan of counts[b], then
-// the total.
-__global__ void __launch_bounds__(kScanThreads)
-bin_scan(const int* __restrict__ counts, int* __restrict__ starts, int K) {
-  __shared__ int s_warp[kScanThreads / 32];
-  const int* c = counts + (size_t)blockIdx.x * K;
-  int* s = starts + (size_t)blockIdx.x * (K + 1);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (K + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tid * per, K), hi = min(lo + per, K);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += c[i];
-  int incl = sum;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = s_warp[lane];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += up;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  int off = (warp > 0 ? s_warp[warp - 1] : 0) + incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    s[i] = off;
-    off += c[i];
-  }
-  if (tid == 0) s[K] = s_warp[kScanThreads / 32 - 1];
+  if (key < K) rank[i] = sr::segment_slot(counts, b * K + key);
 }
 
 __global__ void bin_scatter(const float* __restrict__ v, const long long* __restrict__ tri,
@@ -158,8 +111,8 @@ __global__ void bin_scatter(const float* __restrict__ v, const long long* __rest
   if (key >= K) return;
   const int b = (int)(i / nf), f = (int)(i - (long long)b * nf);
   float px[3], py[3], z[3];
-  sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top, perspective != 0, eps,
-                  px, py, z);
+  sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top, top, perspective != 0,
+                  eps, px, py, z);
   const int slot = starts[(size_t)b * (K + 1) + key] + rank[i];
   slots[i] = slot;
   sr::bin_row(px, py, z, attrs ? attrs + (size_t)b * nv * n_attr : nullptr, tri + 3 * (size_t)f,
@@ -190,11 +143,11 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
   __shared__ int s_qn;
   if (tid == 0) s_qn = 0;
   for (int r = tid; r < nrows; r += kThreads) s_key[r] = 0ull;
-  if (tid < n_levels) sr::level_tile(top, tile, n_levels, tid, tx, ty, s_lt[tid]);
+  if (tid < n_levels) sr::level_tile(top, top, tile, n_levels, tid, tx, ty, s_lt[tid]);
   if (tid == 0)
     sr::tile_segments(starts + (size_t)b * (sr::kTiers * ntiles + 1), ntx, tx, ty, lo, hi);
   __syncthreads();
-  const int total = sr::segment_total(lo, hi);
+  const int total = sr::segment_total<sr::kSegments>(lo, hi);
   const float* rows_b = rows + (size_t)b * nf * RP;
   auto emit = [&](int r, unsigned long long key) { atomicMax(&s_key[r], key); };
   // the row at sorted position p -> its corners in t, its id
@@ -215,7 +168,7 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
       sr::LevelSetup S;
       int clip[4];
       const int id = load(item >> 4, t);
-      if (sr::level_clip(t, k, top, s_lt[k], p, S, clip))
+      if (sr::level_clip(t, k, top, top, s_lt[k], p, S, clip))
         sr::clip_scan(t, id, p, clip, s_lt[k], S, perspective != 0, eps, emit);
     }
   };
@@ -223,15 +176,15 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
   for (int q0 = 0; q0 < total; q0 += kThreads) {
     const int q = q0 + tid;
     if (q < total) {
-      const int pos = sr::segment_pos(q, lo, hi);
+      const int pos = sr::segment_pos<sr::kSegments>(q, lo, hi);
       float t[12], p[6];
       sr::LevelSetup S;
       int clip[4];
       const int id = load(pos, t);
-      if (sr::level_clip(t, 0, top, s_lt[0], p, S, clip))
+      if (sr::level_clip(t, 0, top, top, s_lt[0], p, S, clip))
         sr::clip_scan(t, id, p, clip, s_lt[0], S, perspective != 0, eps, emit);
       for (int k = 1; k < n_levels; ++k) {
-        const bool push = sr::level_clip(t, k, top, s_lt[k], p, S, clip);
+        const bool push = sr::level_clip(t, k, top, top, s_lt[k], p, S, clip);
         // one shared atomicAdd per warp for its pushes
         const unsigned act = __activemask();
         const unsigned m = __ballot_sync(act, push);
@@ -327,7 +280,7 @@ extern "C" int sr_bin_multi(const float* v, const long long* tri, const float* a
   if (n > 0)
     bin_classify<<<blocks, kBinThreads, 0, st>>>(v, tri, keys, rank, counts, B, nv, nf, top,
                                                  n_levels, tile, perspective, eps);
-  bin_scan<<<B, kScanThreads, 0, st>>>(counts, starts, K);
+  sr::bin_scan<<<B, sr::kScanThreads, 0, st>>>(counts, starts, K);
   if (n > 0)
     bin_scatter<<<blocks, kBinThreads, 0, st>>>(v, tri, attrs, keys, rank, starts, rows, slots,
                                                 B, nv, nf, top, tile, n_attr, perspective, eps);

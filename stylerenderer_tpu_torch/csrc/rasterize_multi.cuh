@@ -41,6 +41,7 @@ namespace sr {
 constexpr int kSegments = 6;  // tier-0 home, 2 tier-1 rows, 2 degenerate rows, XL
 constexpr int kTiers = 4;     // span-1, span-2, degenerate (span <= 2), XL
 constexpr int kRaw = 9;       // px0..2, py0..2, z0..2 ahead of the attributes
+constexpr int kZ = 6;         // where z0..2 start in a raw row
 constexpr int kNoWinner = INT_MAX;
 constexpr int kMaxLevels = 11;  // pyramid levels the multi-level kernel takes
 
@@ -141,11 +142,12 @@ SR_HD void level_setup(const float* t, int k, float wl, float hl, float eps,
   level_coeffs(p, eps, S);
 }
 
-// Candidate at pixel (X, Y) of the setup's level; t holds the triangle's
-// top-level z at t[6..8]. Returns coverage; on coverage writes the depth and
-// the final interpolation coefficients (rasterize_pallas.py:265-331 and
-// :162-183). Every early return is a false conjunct of the oracle's `cov`.
-SR_HD bool level_pixel(const LevelSetup& S, const float* t, float X, float Y,
+// Candidate at pixel (X, Y) of the setup's level; z holds the triangle's
+// three top-level depths (a raw row's t + kZ). Returns coverage; on coverage
+// writes the depth and the final interpolation coefficients
+// (rasterize_pallas.py:265-331 and :162-183). Every early return is a false
+// conjunct of the oracle's `cov`.
+SR_HD bool level_pixel(const LevelSetup& S, const float* z, float X, float Y,
                        bool perspective, float eps, float& depth, float co[3]) {
   if (!(S.flags & kCanCover)) return false;
   if (!((X >= S.x0) && (X <= S.x1) && (Y >= S.y0) && (Y <= S.y1))) return false;
@@ -183,7 +185,7 @@ SR_HD bool level_pixel(const LevelSetup& S, const float* t, float X, float Y,
       co[2] = i == 2 ? 1.0f : 0.0f;
     }
   }
-  const float z0 = t[6], z1 = t[7], z2 = t[8];
+  const float z0 = z[0], z1 = z[1], z2 = z[2];
   if (perspective) {
     const float z0s = z0 < -eps ? z0 : -1.0f;
     const float z1s = z1 < -eps ? z1 : -1.0f;
@@ -322,19 +324,25 @@ struct LevelTile {
   int x0, x1, y0, y1, off, stride;
 };
 
-SR_HD void level_tile(int top, int tile, int n_levels, int k, int tx, int ty, LevelTile& T) {
+// Tile (tx, ty) at level k of a w x h image (sparse levels: square images
+// only). A dense level's rectangle is clipped to the image, since the
+// single-level kernel's tile grid rounds up and its edge tiles stick out.
+SR_HD void level_tile(int w, int h, int tile, int n_levels, int k, int tx, int ty,
+                      LevelTile& T) {
   const int tl = tile >> k;
   T.off = tile_rows(tile, k);
   if (tl) {
     T.x0 = tx * tl;
     T.y0 = ty * tl;
-    T.x1 = T.x0 + tl - 1;
-    T.y1 = T.y0 + tl - 1;
+    const int xe = T.x0 + tl - 1, ye = T.y0 + tl - 1;
+    const int xm = (w >> k) - 1, ym = (h >> k) - 1;
+    T.x1 = xe < xm ? xe : xm;
+    T.y1 = ye < ym ? ye : ym;
     T.stride = tl;
   } else {  // a sparse level: the one pixel this tile owns, if any
     int X = 0, Y = 0;
     bool live;
-    row_pixel(T.off, top, tile, n_levels, tx, ty, X, Y, live);
+    row_pixel(T.off, w, tile, n_levels, tx, ty, X, Y, live);
     T.x0 = T.x1 = X;
     T.y0 = T.y1 = Y;
     if (!live) T.x1 = X - 1;
@@ -356,16 +364,15 @@ SR_HD unsigned long long depth_key(float depth, int id) {
 
 SR_HD int key_id(unsigned long long key) { return (int)(0xffffffffu - (unsigned)key); }
 
-// Candidate t (its raw row) at level k against the tile's pixels there:
-// the level corners p, the clamped bbox in S, and that bbox clipped to the
-// tile's pixels (integers held in f32, clipped before the conversion to
-// int); false when the clip is empty.
-SR_HD bool level_clip(const float* t, int k, int top, const LevelTile& T, float p[6],
+// Candidate t (its raw row) at level k of a w x h image against the tile's
+// pixels there: the level corners p, the clamped bbox in S, and that bbox
+// clipped to the tile's pixels (integers held in f32, clipped before the
+// conversion to int); false when the clip is empty.
+SR_HD bool level_clip(const float* t, int k, int w, int h, const LevelTile& T, float p[6],
                       LevelSetup& S, int clip[4]) {
   if (T.x0 > T.x1) return false;
   level_corners(t, k, p);
-  const float wl = (float)(top >> k);
-  level_bbox(p, wl, wl, S);
+  level_bbox(p, (float)(w >> k), (float)(h >> k), S);
   const float fx0 = fmax_(S.x0, (float)T.x0), fx1 = fmin_(S.x1, (float)T.x1);
   const float fy0 = fmax_(S.y0, (float)T.y0), fy1 = fmin_(S.y1, (float)T.y1);
   if (!(fx0 <= fx1 && fy0 <= fy1)) return false;
@@ -376,9 +383,19 @@ SR_HD bool level_clip(const float* t, int k, int top, const LevelTile& T, float 
   return true;
 }
 
-// After level_clip: the rest of the setup, then the exact test (level_pixel)
-// on every pixel of the clip; each pixel the triangle covers with a depth
-// that can win gets emit(tile row, depth_key).
+// The exact test (level_pixel) of a set-up candidate with depths z at pixel
+// (x, y) of the tile: a covered pixel with a depth that can win gets
+// emit(tile row, depth_key).
+template <class Emit>
+SR_HD void test_pixel(const LevelSetup& S, const float* z, int id, int x, int y,
+                      const LevelTile& T, bool perspective, float eps, Emit&& emit) {
+  float depth, co[3];
+  if (level_pixel(S, z, (float)x, (float)y, perspective, eps, depth, co) && depth > -INFINITY)
+    emit(T.off + (y - T.y0) * T.stride + (x - T.x0), depth_key(depth, id));
+}
+
+// After level_clip: the rest of the setup, then the exact test on every
+// pixel of the clip.
 template <class Emit>
 SR_HD void clip_scan(const float* t, int id, const float p[6], const int clip[4],
                      const LevelTile& T, LevelSetup& S, bool perspective, float eps,
@@ -386,12 +403,8 @@ SR_HD void clip_scan(const float* t, int id, const float p[6], const int clip[4]
   level_coeffs(p, eps, S);
   if (!(S.flags & kCanCover)) return;
   for (int y = clip[2]; y <= clip[3]; ++y)
-    for (int x = clip[0]; x <= clip[1]; ++x) {
-      float depth, co[3];
-      if (level_pixel(S, t, (float)x, (float)y, perspective, eps, depth, co) &&
-          depth > -INFINITY)
-        emit(T.off + (y - T.y0) * T.stride + (x - T.x0), depth_key(depth, id));
-    }
+    for (int x = clip[0]; x <= clip[1]; ++x)
+      test_pixel(S, t + kZ, id, x, y, T, perspective, eps, emit);
 }
 
 // The kernel's per-tile schedule: rounds of kRound candidates, one per
@@ -416,21 +429,23 @@ SR_HD void winner_values(const float* t, int k, float wl, int X, int Y, bool per
   LevelSetup S;
   level_setup(t, k, wl, wl, eps, S);
   float depth, co[3];
-  level_pixel(S, t, (float)X, (float)Y, perspective, eps, depth, co);
+  level_pixel(S, t + kZ, (float)X, (float)Y, perspective, eps, depth, co);
   for (int a = 0; a < n_attr; ++a)
     out[a] = interp(co, t[kRaw + a], t[kRaw + n_attr + a], t[kRaw + 2 * n_attr + a]);
 }
 
-// Candidates of the tile's segments as one flat range: the number, and the
+// Candidates of a tile's N segments as one flat range: the number, and the
 // sorted position of the q-th.
-SR_HD int segment_total(const int lo[kSegments], const int hi[kSegments]) {
+template <int N>
+SR_HD int segment_total(const int lo[N], const int hi[N]) {
   int n = 0;
-  for (int sg = 0; sg < kSegments; ++sg) n += hi[sg] > lo[sg] ? hi[sg] - lo[sg] : 0;
+  for (int sg = 0; sg < N; ++sg) n += hi[sg] > lo[sg] ? hi[sg] - lo[sg] : 0;
   return n;
 }
 
-SR_HD int segment_pos(int q, const int lo[kSegments], const int hi[kSegments]) {
-  for (int sg = 0; sg < kSegments; ++sg) {
+template <int N>
+SR_HD int segment_pos(int q, const int lo[N], const int hi[N]) {
+  for (int sg = 0; sg < N; ++sg) {
     const int n = hi[sg] > lo[sg] ? hi[sg] - lo[sg] : 0;
     if (q < n) return lo[sg] + q;
     q -= n;

@@ -33,8 +33,8 @@ extern "C" int sr_bin_multi_host(const float* v, const long long* tri, const flo
     std::vector<int> count(K, 0);
     for (int f = 0; f < nf; ++f) {
       float px[3], py[3], z[3];
-      const bool ok = sr::project_tri(vb, nv, tri + 3 * (size_t)f, top, perspective != 0, eps,
-                                      px, py, z);
+      const bool ok = sr::project_tri(vb, nv, tri + 3 * (size_t)f, top, top, perspective != 0,
+                                      eps, px, py, z);
       const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps);
       keys[(size_t)b * nf + f] = key;
       if (key < K) rank[f] = count[key]++;
@@ -46,7 +46,7 @@ extern "C" int sr_bin_multi_host(const float* v, const long long* tri, const flo
       const int key = keys[(size_t)b * nf + f];
       if (key >= K) continue;
       float px[3], py[3], z[3];
-      sr::project_tri(vb, nv, tri + 3 * (size_t)f, top, perspective != 0, eps, px, py, z);
+      sr::project_tri(vb, nv, tri + 3 * (size_t)f, top, top, perspective != 0, eps, px, py, z);
       const int slot = st[key] + rank[f];
       slots[(size_t)b * nf + f] = slot;
       sr::bin_row(px, py, z, attrs ? attrs + (size_t)b * nv * n_attr : nullptr,
@@ -80,11 +80,11 @@ extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, con
     auto emit = [&](int r, unsigned long long k) { key[r] = k > key[r] ? k : key[r]; };
     for (int tl = 0; tl < ntiles; ++tl) {
       const int tx = tl % ntx, ty = tl / ntx;
-      for (int k = 0; k < n_levels; ++k) sr::level_tile(top, tile, n_levels, k, tx, ty, lt[k]);
+      for (int k = 0; k < n_levels; ++k) sr::level_tile(top, top, tile, n_levels, k, tx, ty, lt[k]);
       for (auto& x : key) x = 0;
       int lo[sr::kSegments], hi[sr::kSegments];
       sr::tile_segments(starts + (size_t)b * (sr::kTiers * ntiles + 1), ntx, tx, ty, lo, hi);
-      const int total = sr::segment_total(lo, hi);
+      const int total = sr::segment_total<sr::kSegments>(lo, hi);
       int qn = 0;
       auto run_queue = [&]() {
         for (int i = 0; i < qn; ++i) {
@@ -93,22 +93,22 @@ extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, con
           float p[6];
           sr::LevelSetup S;
           int clip[4];
-          if (sr::level_clip(t, k, top, lt[k], p, S, clip))
+          if (sr::level_clip(t, k, top, top, lt[k], p, S, clip))
             sr::clip_scan(t, sr::f2i(t[R]), p, clip, lt[k], S, perspective != 0, eps, emit);
         }
         qn = 0;
       };
       for (int q0 = 0; q0 < total; q0 += round) {
         for (int q = q0; q < total && q < q0 + round; ++q) {
-          const int pos = sr::segment_pos(q, lo, hi);
+          const int pos = sr::segment_pos<sr::kSegments>(q, lo, hi);
           const float* t = rows_b + (size_t)pos * RP;
           float p[6];
           sr::LevelSetup S;
           int clip[4];
-          if (sr::level_clip(t, 0, top, lt[0], p, S, clip))
+          if (sr::level_clip(t, 0, top, top, lt[0], p, S, clip))
             sr::clip_scan(t, sr::f2i(t[R]), p, clip, lt[0], S, perspective != 0, eps, emit);
           for (int k = 1; k < n_levels; ++k)
-            if (sr::level_clip(t, k, top, lt[k], p, S, clip)) items[qn++] = pos << 4 | k;
+            if (sr::level_clip(t, k, top, top, lt[k], p, S, clip)) items[qn++] = pos << 4 | k;
         }
         if (sr::queue_full(qn, queue, round, n_levels)) {
           run_queue();

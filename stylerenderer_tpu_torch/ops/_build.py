@@ -7,7 +7,8 @@ in ``.gitignore``) under a name that hashes the sources and the flags, so a
 changed source rebuilds and an unchanged one loads the library already there.
 
 - ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, K1 and its
-  binning passes; ``single``: ``csrc/rasterize_single.cu``) for Hopper
+  binning passes; ``single``: ``csrc/rasterize_single.cu``, K2 and its
+  binning passes) for Hopper
   (``sm_90a``), built in parallel by ``build_cuda_libraries()``.
   ``--fmad=false`` keeps every ``a*b+c`` as a rounded multiply and a
   rounded add, as the oracle computes them; the default ``-prec-div=true``
@@ -93,9 +94,16 @@ def build_seconds(name: str) -> float:
 _MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
 _BIN_ARGS = [ctypes.c_void_p] * 3  # v, tri, attrs; then the outputs and scratch
 _BIN_SHAPE = [ctypes.c_int] * 8 + [ctypes.c_float]
-_SINGLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+# rows, starts, wins; B, nf, h, w, tile, perspective; eps
+_SINGLE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float]
+# rows, starts, wins; B, nf, h, w, tile, round, perspective; eps
+_SINGLE_HOST_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float]
+# B, nv, nf, h, w, tile, perspective; eps
+_BIN_SINGLE_SHAPE = [ctypes.c_int] * 7 + [ctypes.c_float]
 _STREAM = [ctypes.c_void_p]
-_MULTI_HEADERS = ("rasterize_multi.cuh", "bin_multi.cuh")
+_MULTI_HEADERS = ("rasterize_multi.cuh", "bin_multi.cuh", "bin_passes.cuh")
+_SINGLE_HEADERS = ("rasterize_single.cuh", "bin_single.cuh", "rasterize_multi.cuh",
+                   "bin_multi.cuh", "bin_passes.cuh")
 
 # name -> (compiler, source, headers, {C function: argument types})
 _SPECS = {
@@ -103,14 +111,16 @@ _SPECS = {
               {"sr_rasterize_multi": _MULTI_ARGS + _STREAM,
                "sr_bin_multi": _BIN_ARGS + [ctypes.c_void_p] * 6 + _BIN_SHAPE + _STREAM,
                "sr_rasterize_multi_shape": [ctypes.c_int] * 4 + [ctypes.c_void_p]}),
-    "single": ("nvcc", "rasterize_single.cu", ("rasterize_single.cuh", "rasterize_multi.cuh"),
-               {"sr_rasterize_single": _SINGLE_ARGS + _STREAM}),
+    "single": ("nvcc", "rasterize_single.cu", _SINGLE_HEADERS,
+               {"sr_rasterize_single": _SINGLE_ARGS + _STREAM,
+                "sr_bin_single": [ctypes.c_void_p] * 7 + _BIN_SINGLE_SHAPE + _STREAM,
+                "sr_rasterize_single_shape": [ctypes.c_int, ctypes.c_void_p]}),
     "multi_host": ("g++", "rasterize_multi_host.cpp", _MULTI_HEADERS,
                    {"sr_rasterize_multi_host": _MULTI_ARGS + [ctypes.c_int] * 2,
                     "sr_bin_multi_host": _BIN_ARGS + [ctypes.c_void_p] * 4 + _BIN_SHAPE}),
-    "single_host": ("g++", "rasterize_single_host.cpp",
-                    ("rasterize_single.cuh", "rasterize_multi.cuh"),
-                    {"sr_rasterize_single_host": _SINGLE_ARGS}),
+    "single_host": ("g++", "rasterize_single_host.cpp", _SINGLE_HEADERS,
+                    {"sr_rasterize_single_host": _SINGLE_HOST_ARGS,
+                     "sr_bin_single_host": [ctypes.c_void_p] * 5 + _BIN_SINGLE_SHAPE}),
 }
 CUDA_LIBRARIES = tuple(n for n, spec in _SPECS.items() if spec[0] == "nvcc")
 

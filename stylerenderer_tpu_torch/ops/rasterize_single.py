@@ -6,14 +6,19 @@ One binning and one kernel pass produce the ``[B, H, W]`` winner map of an
 image of any size, bit-equal to the dense oracle
 ``ops/rasterize.py::rasterize_winners``.
 
-- ``build_bins``: plain torch on the tensor's device (sort,
-  ``searchsorted``, a gather), as the JAX package leaves binning to XLA.
-- ``rasterize_winners_single``: the wrapper. A CUDA tensor goes to the kernel
-  (``csrc/rasterize_single.cu``, launched by ``launch_rasterize_single``); a
-  CPU tensor goes to the plain version.
+- ``build_bins``: the plain version of the binning, plain torch (sort,
+  ``searchsorted``, a gather) as the JAX package leaves binning to XLA; the
+  tests' and ``chip_smoke.py``'s reference, not on any path.
+- ``launch_bin_single``: the binning on the card, hand-written CUDA passes
+  (``csrc/rasterize_single.cu``, per-triangle code in
+  ``csrc/bin_single.cuh``).
+- ``rasterize_winners_single``: the wrapper. A CUDA tensor goes to
+  ``launch_bin_single`` and the kernel (``launch_rasterize_single``); a CPU
+  tensor goes to the plain version.
 - ``rasterize_winners_single_ref``: the plain version, the dense search.
-- ``rasterize_winners_single_host``: the kernel's math built for the host
-  (``csrc/rasterize_single_host.cpp``), for the CPU tests.
+- ``bin_single_host``, ``rasterize_bins_single_host``,
+  ``rasterize_winners_single_host``: the card's binning and kernel built
+  for the host (``csrc/rasterize_single_host.cpp``), for the CPU tests.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import ctypes
 import torch
 
 from stylerenderer_tpu_torch.ops.rasterize import rasterize_winners
-from stylerenderer_tpu_torch.ops.rasterize_multi import _setup
+from stylerenderer_tpu_torch.ops.rasterize_multi import _setup, row_words
 
 TILE = 8
 TIER_SPANS = (1, 2, 4, 16)  # in tiles; XL = anything bigger, scanned by every tile
@@ -39,6 +44,14 @@ def tile_for(h: int, w: int) -> int:
     if m <= 512:
         return 16
     return 32
+
+
+def card_tile(h: int, w: int) -> int:
+    """The card path's tile edge for an ``h x w`` image: 16 px up to 256 px,
+    32 beyond, the kernel's fastest at 256 and 512 px on the H100
+    (``chip_smoke.py`` times tiles 8, 16 and 32; ``PERF.md``). Winners do
+    not depend on the tile; ``tile_for`` is JAX's rule."""
+    return 16 if max(h, w) <= 256 else 32
 
 
 def _grid(h: int, w: int, tile: int) -> tuple[int, int]:
@@ -103,48 +116,102 @@ def build_bins(v, tri, h: int, w: int, perspective: bool, eps: float, tile: int)
     return dat.contiguous(), perm.int().contiguous(), starts.contiguous()
 
 
+ROW_WORDS = row_words(0)  # 9 corner floats, the id's bits, padding: 48 bytes
+
+
 def _check_args(v, h: int, w: int, tile: int | None) -> int:
-    """Validate the call -> the tile (``tile_for`` when None)."""
+    """Validate the call -> the tile (``card_tile`` when None)."""
     if v.ndim != 3 or v.shape[-1] != 3:
         raise ValueError(f"v must be [B, nv, 3], got {tuple(v.shape)}")
     if h < 1 or w < 1:
         raise ValueError(f"image {h} x {w} is empty")
-    tile = tile_for(h, w) if tile is None else tile
+    tile = card_tile(h, w) if tile is None else tile
     if not 1 <= tile <= 32:
         raise ValueError(f"tile {tile}: the kernel takes 1 to 32 px")
     return tile
 
 
-def _check_bins(dat, ids, starts, h: int, w: int, tile: int):
-    """Validate ``build_bins``' output for the kernel."""
-    B, nf, _ = dat.shape
+def _bin_args(v, tri):
+    """The binning's inputs as its passes read them -> (v f32, tri i64),
+    contiguous on ``v``'s device."""
+    v = v.detach().float().contiguous()
+    tri = torch.as_tensor(tri, device=v.device).long().contiguous()
+    if tri.ndim != 2 or tri.shape[-1] != 3:
+        raise ValueError(f"tri must be [nf, 3], got {tuple(tri.shape)}")
+    return v, tri
+
+
+def _n_keys(h: int, w: int, tile: int) -> int:
     ntx, nty = _grid(h, w, tile)
-    expect = ((dat, torch.float32, (B, nf, 9)), (ids, torch.int32, (B, nf)),
-              (starts, torch.int32, (B, N_TIERS * ntx * nty + 1)))
+    return N_TIERS * ntx * nty
+
+
+def launch_bin_single(v, tri, h: int, w: int, perspective: bool, eps: float, tile: int):
+    """Bin on the card with the hand-written passes of
+    ``csrc/rasterize_single.cu`` (a zeroed count buffer, then classify, scan
+    and scatter: four launches, no host synchronisation, no sort) -> (rows
+    ``[B, nf, 12]`` f32, starts ``[B, 5*ntiles+1]`` i32, keys ``[B, nf]``
+    i32).
+
+    The keys and ``starts`` are ``build_bins``'; row ``p`` holds what its
+    ``dat[:, p]`` holds, then the id's bits at column 9, for the valid
+    prefix ``[0, starts[:, -1])`` only. The order within a segment varies
+    from run to run, which the kernel's result does not depend on."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    if v.device.type != "cuda":
+        raise ValueError(f"the card's binning takes CUDA tensors, got {v.device}")
+    tile = _check_args(v, h, w, tile)
+    v, tri = _bin_args(v, tri)
+    B, nv, _ = v.shape
+    nf = tri.shape[0]
+    K = _n_keys(h, w, tile)
+    counts = torch.zeros((B, K), dtype=torch.int32, device=v.device)
+    rank = torch.empty((B, nf), dtype=torch.int32, device=v.device)
+    keys = torch.empty((B, nf), dtype=torch.int32, device=v.device)
+    starts = torch.empty((B, K + 1), dtype=torch.int32, device=v.device)
+    rows = torch.empty((B, nf, ROW_WORDS), dtype=torch.float32, device=v.device)
+    lib = library("single")
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = lib.sr_bin_single(v.data_ptr(), tri.data_ptr(), counts.data_ptr(), keys.data_ptr(),
+                           rank.data_ptr(), starts.data_ptr(), rows.data_ptr(), B, nv, nf, h, w,
+                           tile, int(perspective), eps, stream)
+    if rc != 0:
+        raise RuntimeError("bin_single launch failed: " + lib.sr_error_string(rc).decode())
+    return rows, starts, keys
+
+
+def _check_bins(rows, starts, h: int, w: int, tile: int, device_type: str):
+    """Validate the binning's output for the kernel (or its host build)."""
+    B, nf = rows.shape[:2]
+    expect = ((rows, torch.float32, (B, nf, ROW_WORDS)),
+              (starts, torch.int32, (B, _n_keys(h, w, tile) + 1)))
     for t, dt, shape in expect:
-        if t.device.type != "cuda" or t.device != dat.device:
-            raise ValueError(f"kernel inputs must lie on one CUDA device, got {t.device}")
+        if t.device.type != device_type or t.device != rows.device:
+            raise ValueError(f"kernel inputs must lie on one {device_type} device, "
+                             f"got {t.device}")
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"kernel input {t.dtype} {tuple(t.shape)} (contiguous: "
                              f"{t.is_contiguous()}), expected contiguous {dt} {shape}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned for the kernel's 16-byte loads")
 
 
-def launch_rasterize_single(dat, ids, starts, h: int, w: int, tile: int,
-                            perspective: bool, eps: float):
-    """Launch the Hopper kernel on binned triangles (``build_bins``) on the
-    current stream -> winners ``[B, H, W]`` i32. Counts the launch in
+def launch_rasterize_single(rows, starts, h: int, w: int, tile: int, perspective: bool,
+                            eps: float):
+    """Launch the Hopper kernel on the card's binning (``launch_bin_single``)
+    on the current stream -> winners ``[B, H, W]`` i32. Counts the launch in
     ``rasterize_winners_single.launches``; raises when the launch is
     refused."""
     from stylerenderer_tpu_torch.ops._build import library
 
-    _check_bins(dat, ids, starts, h, w, tile)
+    _check_bins(rows, starts, h, w, tile, "cuda")
     lib = library("single")
-    B = dat.shape[0]
-    wins = torch.empty((B, h, w), dtype=torch.int32, device=dat.device)
-    stream = torch.cuda.current_stream(dat.device).cuda_stream
-    rc = lib.sr_rasterize_single(dat.data_ptr(), ids.data_ptr(), starts.data_ptr(),
-                                 wins.data_ptr(), B, dat.shape[1], h, w, tile,
-                                 int(perspective), eps, stream)
+    B = rows.shape[0]
+    wins = torch.empty((B, h, w), dtype=torch.int32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    rc = lib.sr_rasterize_single(rows.data_ptr(), starts.data_ptr(), wins.data_ptr(), B,
+                                 rows.shape[1], h, w, tile, int(perspective), eps, stream)
     if rc != 0:
         raise RuntimeError("rasterize_single launch failed: "
                            + lib.sr_error_string(rc).decode())
@@ -161,36 +228,69 @@ def rasterize_winners_single(v, tri, h: int, w: int, perspective: bool = False,
                              eps: float = 1e-6, tile: int | None = None):
     """Winner map ``[B, H, W]`` int32 (-1 background) of ``v`` ``[B, nv, 3]``.
 
-    A CUDA ``v`` launches the kernel (and counts the launch in
-    ``rasterize_winners_single.launches``); a CPU ``v`` takes the plain
-    version. There is no fallback between the two.
+    A CUDA ``v`` is binned on the card (``launch_bin_single``) and launches
+    the kernel (counted in ``rasterize_winners_single.launches``); a CPU
+    ``v`` takes the plain version. There is no fallback between the two.
     """
     tile = _check_args(v, h, w, tile)
     if v.device.type == "cpu":
         return rasterize_winners_single_ref(v, tri, h, w, perspective, eps)
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
-    dat, ids, starts = build_bins(v, tri, h, w, perspective, eps, tile)
-    return launch_rasterize_single(dat, ids, starts, h, w, tile, perspective, eps)
+    rows, starts, _ = launch_bin_single(v, tri, h, w, perspective, eps, tile)
+    return launch_rasterize_single(rows, starts, h, w, tile, perspective, eps)
 
 
 rasterize_winners_single.launches = 0
 
 
-def rasterize_winners_single_host(v, tri, h: int, w: int, perspective: bool = False,
-                                  eps: float = 1e-6, tile: int | None = None):
-    """The kernel's candidate math and tile worklists compiled for the host
-    (g++), on CPU tensors: same binning, same output as the kernel."""
+def bin_single_host(v, tri, h: int, w: int, perspective: bool, eps: float, tile: int):
+    """The card's binning compiled for the host (g++), on CPU tensors ->
+    ``launch_bin_single``'s (rows, starts, keys); each segment in ascending
+    id order."""
     from stylerenderer_tpu_torch.ops._build import library
 
     tile = _check_args(v, h, w, tile)
-    lib = library("single_host")
-    dat, ids, starts = build_bins(v.cpu(), tri, h, w, perspective, eps, tile)
-    B = dat.shape[0]
+    v, tri = _bin_args(v.cpu(), tri)
+    B, nv, _ = v.shape
+    nf = tri.shape[0]
+    K = _n_keys(h, w, tile)
+    keys = torch.empty((B, nf), dtype=torch.int32)
+    starts = torch.empty((B, K + 1), dtype=torch.int32)
+    rows = torch.empty((B, nf, ROW_WORDS), dtype=torch.float32)
+    rc = library("single_host").sr_bin_single_host(
+        v.data_ptr(), tri.data_ptr(), keys.data_ptr(), starts.data_ptr(), rows.data_ptr(), B, nv,
+        nf, h, w, tile, int(perspective), ctypes.c_float(eps))
+    if rc != 0:
+        raise RuntimeError("host bin_single rejected its arguments")
+    return rows, starts, keys
+
+
+def rasterize_bins_single_host(rows, starts, h: int, w: int, tile: int,
+                               perspective: bool = False, eps: float = 1e-6,
+                               round_size: int = 0):
+    """The kernel's per-tile schedule and candidate math compiled for the
+    host (g++) on binned rows (``bin_single_host``) -> winners ``[B, H,
+    W]``, as the kernel. ``round_size`` candidates per round (0: the
+    kernel's block for the tile; below 32, or a multiple of 32)."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    _check_bins(rows, starts, h, w, tile, "cpu")
+    B = rows.shape[0]
     wins = torch.empty((B, h, w), dtype=torch.int32)
-    rc = lib.sr_rasterize_single_host(dat.data_ptr(), ids.data_ptr(), starts.data_ptr(),
-                                      wins.data_ptr(), B, dat.shape[1], h, w, tile,
-                                      int(perspective), ctypes.c_float(eps))
+    rc = library("single_host").sr_rasterize_single_host(
+        rows.data_ptr(), starts.data_ptr(), wins.data_ptr(), B, rows.shape[1], h, w, tile,
+        round_size, int(perspective), ctypes.c_float(eps))
     if rc != 0:
         raise RuntimeError("host rasterize_single rejected its arguments")
     return wins
+
+
+def rasterize_winners_single_host(v, tri, h: int, w: int, perspective: bool = False,
+                                  eps: float = 1e-6, tile: int | None = None,
+                                  round_size: int = 0):
+    """The card's binning and kernel compiled for the host (g++), on CPU
+    tensors: the same output as ``rasterize_winners_single`` on the card."""
+    tile = _check_args(v, h, w, tile)
+    rows, starts, _ = bin_single_host(v, tri, h, w, perspective, eps, tile)
+    return rasterize_bins_single_host(rows, starts, h, w, tile, perspective, eps, round_size)

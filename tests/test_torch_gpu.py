@@ -16,6 +16,7 @@ import torch
 from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, keys_of_bins, single_case
 
 import stylerenderer_tpu_torch.ops.rasterize_multi as rasterize_multi_mod
+import stylerenderer_tpu_torch.ops.rasterize_single as rasterize_single_mod
 
 from stylerenderer_tpu_torch.face3d import (
     mesh_point_normal, random_apply_pose3D, synthetic_face,
@@ -28,6 +29,8 @@ from stylerenderer_tpu_torch.ops.rasterize_multi import (
     rasterize_winners_multi_ref,
 )
 from stylerenderer_tpu_torch.ops.rasterize_single import (
+    build_bins,
+    launch_bin_single,
     rasterize_winners_single,
     rasterize_winners_single_ref,
 )
@@ -122,16 +125,58 @@ def test_cuda_fused_pyramid_gradients_match_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SINGLE_CASES))
 def test_cuda_single_kernel_bitexact(cuda, case):
-    """The single-level kernel: tiles 8, 16 and 32, rectangular images,
-    edge tiles that stick out, perspective, degenerate and XL triangles."""
+    """The single-level kernel at every tile the card path may take (8, 16
+    and 32) and the case's own: rectangular images, edge tiles that stick
+    out, perspective, degenerate and XL triangles, corners on tile edges,
+    -0/+0 ties, many rounds in one tile, clips of up to 1,024 px."""
     v, tri, h, w, tile, persp = single_case(case)
     v, tri = torch.from_numpy(v).to(cuda), torch.from_numpy(tri).to(cuda)
-    before = rasterize_winners_single.launches
-    out = rasterize_winners_single(v, tri, h, w, persp, tile=tile)
-    torch.cuda.synchronize()
-    assert rasterize_winners_single.launches == before + 1
+    ref = rasterize_winners_single_ref(v, tri, h, w, persp).cpu().numpy()
+    for t in sorted({tile, 8, 16, 32}):
+        before = rasterize_winners_single.launches
+        out = rasterize_winners_single(v, tri, h, w, persp, tile=t)
+        torch.cuda.synchronize()
+        assert rasterize_winners_single.launches == before + 1
+        np.testing.assert_array_equal(out.cpu().numpy(), ref, err_msg=f"tile {t}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_cuda_single_binning_matches_plain(cuda, case):
+    """The card's single-level binning: the plain binning's keys and starts
+    and the same ids in every segment, at every tile."""
+    v, tri, h, w, tile, persp = single_case(case)
+    v, tri = torch.from_numpy(v).to(cuda), torch.from_numpy(tri).to(cuda)
+    for t in sorted({tile, 8, 16, 32}):
+        rows, starts, keys = launch_bin_single(v, tri, h, w, persp, 1e-6, t)
+        _, ids, pstarts = build_bins(v, tri, h, w, persp, 1e-6, t)
+        pstarts, ids = pstarts.cpu().numpy(), ids.cpu().numpy()
+        np.testing.assert_array_equal(starts.cpu().numpy(), pstarts, err_msg=f"tile {t}")
+        np.testing.assert_array_equal(keys.cpu().numpy(), keys_of_bins(ids, pstarts),
+                                      err_msg=f"tile {t}")
+        rid = rows[..., 9].contiguous().view(torch.int32).cpu().numpy()
+        for b in range(rows.shape[0]):
+            for lo, hi in zip(pstarts[b, :-1], pstarts[b, 1:]):
+                assert set(rid[b, lo:hi]) == set(ids[b, lo:hi])
+
+
+@pytest.mark.gpu
+def test_cuda_single_call_never_takes_plain_binning(cuda, monkeypatch):
+    """A CUDA call of the single-level kernel bins on the card: the plain
+    binning and the plain version are never reached, even when patched to
+    fail."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA path reached a plain version")
+
+    v, tri, h, w, tile, persp = single_case("rect_40x24")
+    v, tri = torch.from_numpy(v).to(cuda), torch.from_numpy(tri).to(cuda)
     ref = rasterize_winners_single_ref(v, tri, h, w, persp)
-    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+    monkeypatch.setattr(rasterize_single_mod, "build_bins", refuse)
+    monkeypatch.setattr(rasterize_single_mod, "rasterize_winners_single_ref", refuse)
+    out = rasterize_winners_single(v, tri, h, w, persp)
+    assert torch.equal(out, ref)
+    out = rasterize(v, torch.ones_like(v), tri, h, w, persp, method="pallas")
+    assert out.shape == (v.shape[0], h, w, 3)
 
 
 @pytest.mark.gpu

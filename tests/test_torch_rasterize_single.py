@@ -1,8 +1,11 @@
 """The port's single-level tile rasterizer against the JAX package and
 against its own plain version.
 
-- the host build (g++) of the kernel's math and worklists, bit for bit
-  against the plain version (the CUDA kernel itself: ``test_torch_gpu.py``);
+- the host build (g++) of the card's binning, bit for bit against the plain
+  binning ``build_bins`` (keys, starts, ids per segment, rows), and of the
+  kernel's math, worklists and per-tile schedule, bit for bit against the
+  plain version, in any order within a segment and at any round size (the
+  CUDA kernel and binning themselves: ``test_torch_gpu.py``);
 - binning: ``starts`` equal to JAX ``build_bins``', the same triangle ids
   in every segment;
 - the plain version and the host build against the JAX Pallas kernel in
@@ -25,7 +28,7 @@ from jax.experimental import pallas as pl
 import stylerenderer_tpu.ops.rasterize_pallas as jrp
 from stylerenderer_tpu.ops.rasterize import rasterize_winners as j_rasterize_winners
 
-from torch_meshes import SINGLE_CASES, single_case
+from torch_meshes import SINGLE_CASES, keys_of_bins, single_case
 
 from stylerenderer_tpu_torch.ops import rasterize_single as rs
 from stylerenderer_tpu_torch.ops.rasterize import (
@@ -65,9 +68,10 @@ def interpret_mode(monkeypatch):
 
 @pytest.mark.parametrize("case", sorted(SINGLE_CASES))
 def test_host_kernel_math_bitexact(host_build, case):
-    """The kernel's candidate math and worklists (g++, -ffp-contract=off)
-    equal the plain version bit for bit, at tiles 8, 16 and 32, on square
-    and rectangular images and with edge tiles that stick out."""
+    """The card's binning and the kernel's candidate math, worklists and
+    schedule (g++, -ffp-contract=off) equal the plain version bit for bit,
+    at tiles 8, 16 and 32, on square and rectangular images and with edge
+    tiles that stick out."""
     v, tri, h, w, tile, persp = single_case(case)
     host = rs.rasterize_winners_single_host(_t(v), _t(tri), h, w, persp, tile=tile)
     ref = rs.rasterize_winners_single_ref(_t(v), _t(tri), h, w, persp)
@@ -76,6 +80,74 @@ def test_host_kernel_math_bitexact(host_build, case):
     assert (ref >= 0).any()
     if case == "degenerate":
         assert {1, 2} <= set(ref.numpy().reshape(-1))  # the segment and the point won pixels
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_host_binning_matches_plain(host_build, case):
+    """The card's binning passes built for the host: the plain binning's
+    keys and starts, the same ids in every segment and the same row
+    (corner px, py, z) for every id."""
+    v, tri, h, w, tile, persp = single_case(case)
+    rows, starts, keys = rs.bin_single_host(_t(v), _t(tri), h, w, persp, 1e-6, tile)
+    dat, ids, pstarts = rs.build_bins(_t(v), _t(tri), h, w, persp, 1e-6, tile)
+    np.testing.assert_array_equal(starts.numpy(), pstarts.numpy())
+    np.testing.assert_array_equal(keys.numpy(), keys_of_bins(ids.numpy(), pstarts.numpy()))
+    rid = rows[..., 9].contiguous().view(torch.int32).numpy()
+    ids = ids.numpy()
+    for b in range(v.shape[0]):
+        st = pstarts[b].numpy()
+        for lo, hi in zip(st[:-1], st[1:]):
+            assert set(rid[b, lo:hi]) == set(ids[b, lo:hi])
+        n = st[-1]
+        mine = rows[b, :n, :9].numpy()[np.argsort(rid[b, :n])]
+        plain = dat[b, :n].numpy()[np.argsort(ids[b, :n])]
+        np.testing.assert_array_equal(mine, plain)
+    assert starts[:, -1].min() > 0
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_host_kernel_order_independent(host_build, case):
+    """The card's atomic slots order each segment differently from run to
+    run: the kernel's per-tile schedule (host build) on every segment
+    reversed gives the same winners."""
+    v, tri, h, w, tile, persp = single_case(case)
+    rows, starts, _ = rs.bin_single_host(_t(v), _t(tri), h, w, persp, 1e-6, tile)
+    rev = rows.clone()
+    for b in range(rows.shape[0]):
+        st = starts[b].tolist()
+        for lo, hi in zip(st[:-1], st[1:]):
+            rev[b, lo:hi] = rows[b, lo:hi].flip(0)
+    if (starts.diff(dim=-1) > 1).any():  # some segment holds two triangles
+        assert not torch.equal(rev, rows)
+    out = rs.rasterize_bins_single_host(rows, starts, h, w, tile, persp)
+    out_rev = rs.rasterize_bins_single_host(rev, starts, h, w, tile, persp)
+    np.testing.assert_array_equal(out.numpy(), out_rev.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_host_kernel_small_rounds(host_build, case):
+    """The kernel's schedule in rounds of 4 candidates (a partial warp each)
+    and of two warps equals the dense oracle bit for bit, as its own block
+    size does; the ``dense_tile`` case runs many rounds of the kernel's own
+    block in one tile."""
+    v, tri, h, w, tile, persp = single_case(case)
+    rows, starts, _ = rs.bin_single_host(_t(v), _t(tri), h, w, persp, 1e-6, tile)
+    ref = rs.rasterize_winners_single_ref(_t(v), _t(tri), h, w, persp)
+    for round_size in (4, 64):
+        out = rs.rasterize_bins_single_host(rows, starts, h, w, tile, persp,
+                                            round_size=round_size)
+        np.testing.assert_array_equal(out.numpy(), ref.numpy(), err_msg=f"rounds {round_size}")
+    if case == "dense_tile":
+        assert starts[:, -1].min() > 8 * 256  # valid triangles, all within 3 x 3 tiles
+    for bad in (-1, 48):
+        with pytest.raises(RuntimeError, match="rejected"):
+            rs.rasterize_bins_single_host(rows, starts, h, w, tile, persp, round_size=bad)
+
+
+def test_card_binning_refuses_cpu_tensors():
+    v, tri, h, w, tile, persp = single_case("random")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rs.launch_bin_single(_t(v), _t(tri), h, w, persp, 1e-6, tile)
 
 
 # perspective and rectangular, the sphere's dense tier-0 bins, tile 32
@@ -141,6 +213,15 @@ def test_single_matches_jax_interpret(host_build, interpret_mode, monkeypatch, c
 def test_tile_for_matches_jax():
     for h, w in [(8, 8), (256, 256), (256, 192), (264, 264), (512, 384), (520, 8), (1024, 1024)]:
         assert rs.tile_for(h, w) == jrp._tile_for(h, w)
+
+
+def test_card_tile():
+    """The card path's tile: 16 px up to 256 px on the longer side, 32
+    beyond; the wrapper takes it when no tile is given."""
+    for h, w, tile in [(8, 8, 16), (256, 256, 16), (256, 192, 16), (192, 257, 32),
+                       (512, 512, 32), (1024, 1024, 32)]:
+        assert rs.card_tile(h, w) == tile, (h, w)
+    assert rs._check_args(torch.zeros(1, 3, 3), 256, 192, None) == 16
 
 
 def test_cpu_wrapper_takes_plain_version():

@@ -125,6 +125,67 @@ def mesh_ties_nan():
     return v, tri
 
 
+def _pixel_mesh(m, z, h, w):
+    """Corners in pixel coords m [B, nf, 3, 2] and depths z [B, nf, 3] of an
+    h x w image -> (v, tri), each triangle with its own three vertices:
+    pixel m is NDC ((m_x + 0.5) * 2 / w - 1, 1 - (m_y + 0.5) * 2 / h), exact
+    in f32 when w and h are powers of two."""
+    B, nf = m.shape[:2]
+    x = (m[..., 0] + 0.5) * 2.0 / w - 1.0
+    y = 1.0 - (m[..., 1] + 0.5) * 2.0 / h
+    v = np.stack([x, y, z], -1).reshape(B, 3 * nf, 3).astype(np.float32)
+    return v, np.arange(3 * nf, dtype=np.int32).reshape(nf, 3)
+
+
+def _front(m):
+    """Corners m [..., 3, 2] with every triangle turned to face front (the
+    winding of mesh_degenerate's first)."""
+    d1, d2 = m[..., 1, :] - m[..., 0, :], m[..., 2, :] - m[..., 0, :]
+    back = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0] > 0
+    m[back] = m[back][:, ::-1]
+    return m
+
+
+def mesh_lattice_single(seed=0, B=2, h=32, w=64, tile=8, nf=240):
+    """Small triangles (and a few larger ones) with every corner exactly on
+    a pixel center of an h x w image, most anchored on tile edges (pixels
+    tile*j - 1 and tile*j) and on the image's border and just outside it,
+    so that bboxes start and end exactly on a tile's first or last pixel;
+    half face away."""
+    rng = np.random.RandomState(seed)
+    m = np.zeros((B, nf, 3, 2))
+    for n, axis in ((w, 0), (h, 1)):
+        edges = sorted({e for j in range(n // tile + 1) for e in (tile * j - 1, tile * j)}
+                       | {0, n - 1, -1, n})
+        anchor = np.where(rng.rand(B, nf) < 0.7, rng.choice(edges, (B, nf)),
+                          rng.randint(-1, n + 1, (B, nf)))
+        reach = np.where(rng.rand(B, nf) < 0.1, 24, 3)
+        off = (rng.rand(B, nf, 3) * reach[..., None]).astype(np.int64)
+        off[..., 0] = 0
+        m[..., axis] = anchor[..., None] + off
+    return _pixel_mesh(m, rng.randn(B, nf, 3), h, w)
+
+
+def mesh_big_single(seed=0, B=2, h=96, w=64):
+    """Big triangles over an h x w image, for 32 px tiles: one that fills
+    the image, six of 40-150 px (the span-16 tier at 8 px tiles), twenty of
+    10-40 px, two degenerate segments across the image (XL) and a hundred
+    small triangles of 1-4 px, all facing front at random depths, so that
+    many clips fill a whole 32 px tile (1,024 px)."""
+    rng = np.random.RandomState(seed)
+    parts = []
+    for n, lo, hi in ((6, 40, 150), (20, 10, 40), (100, 1, 4)):
+        c = rng.uniform(0, [w, h], (B, n, 1, 2))
+        parts.append(c + rng.uniform(-1, 1, (B, n, 3, 2)) * rng.uniform(lo, hi, (B, n, 1, 1)) / 2)
+    fill = np.asarray([[-0.4 * w, -0.4 * h], [1.6 * w, 0.5 * h], [0.2 * w, 1.6 * h]])
+    parts.insert(0, np.broadcast_to(fill, (B, 1, 3, 2)).copy())
+    a, b = rng.uniform(0, [w, h], (2, B, 2, 1, 2))
+    parts.append(np.concatenate([a, b, b], 2))  # a segment: det 0
+    m = _front(np.concatenate(parts, 1))
+    z = np.repeat(rng.randn(B, m.shape[1], 1), 3, -1)
+    return _pixel_mesh(m, z, h, w)
+
+
 # (mesh function, top, n_levels, tile, perspective): the kernel's cases,
 # from the tile-16 main-path layout with its sparse coarse levels to tiles
 # 8 and 32, perspective, degenerate triangles, the XL tier and corners on
@@ -172,8 +233,13 @@ def keys_of_bins(ids, starts):
 
 # (mesh function, h, w, tile, perspective): the single-level kernel's
 # cases. The first six are the JAX package's own cases for its kernel
-# (tests/test_rasterize_pallas.py); then rectangular images, tile 32, and
-# edge tiles that stick out of the image (40 x 24 at tile 16).
+# (tests/test_rasterize_pallas.py); then rectangular images, tile 32, edge
+# tiles that stick out of the image (40 x 24 at tile 16), corners on the
+# pixel lattice and on tile edges, depth ties between -0.0 and +0.0 with a
+# NaN vertex, thousands of triangles over one tile (many rounds of the
+# kernel's block), and big triangles at tile 32 (clips of up to 1,024 px,
+# XL; a 96 px image has at most 3 tiles of 32 px, so the span-16 tier shows
+# at the 8 px tiles the card tests also run).
 SINGLE_CASES = {
     "random": (lambda: mesh_random(False), 24, 24, 8, False),
     "random_persp": (lambda: mesh_random(True), 24, 24, 8, True),
@@ -189,6 +255,10 @@ SINGLE_CASES = {
                       False),
     "edge_tiles_40x24_tile16": (lambda: mesh_random(False, seed=7, nv=60, nf=200, scale=0.6),
                                 40, 24, 16, False),
+    "lattice": (mesh_lattice_single, 32, 64, 8, False),
+    "ties_nan": (mesh_ties_nan, 24, 24, 8, False),
+    "dense_tile": (lambda: mesh_dense_tile(nf=3000), 64, 64, 16, False),
+    "big_triangles_96x64_tile32": (mesh_big_single, 96, 64, 32, False),
 }
 
 
