@@ -13,10 +13,19 @@ entry points a user calls, and prints what it measured:
   multi-level kernel K1) and ``"downsample"`` with the fused pyramid (K1 at
   one level) and without it (the single-level kernel K2);
 - the synthetic-face dataset writer at 256 px, B=16 (K2);
+- GAR training through ``cli/train.py``: 5 steps at full width
+  (``size=256``, ``latent=512``, ``n_mlp=8``, ``channel_multiplier=2``),
+  B=16, f32, on the writer's 64-image shard, with ``--d_reg_every 16
+  --g_reg_every 4`` so that steps with R1 + path, path only and neither
+  all run (K1 twice a step, three times with the path term), a checkpoint
+  and a sample grid; then each kind of step timed alone, its peak memory,
+  and K1's share of its device time from the profiler;
 - ``render_mean_face`` at 256 x 192 (K2);
 - the generation CLI.
 
-K1 is timed at the ``each`` shapes (7 levels, C=3) and at one level,
+K1 is timed at the ``each`` shapes (7 levels, C=3), at the training
+shapes (the 9,024-triangle mesh at B=16 and B=8, 7 levels, C=3) and at
+one level,
 with its binning on the card held against the plain binning
 ``build_bins_multi`` (keys and starts equal) and timed beside it. K2 is
 timed at tiles 8, 16 and 32 on the synth writer's mesh and on the
@@ -49,6 +58,12 @@ BATCH = 16
 FORWARDS = 10      # timed forwards of the "each" path
 DS_FORWARDS = 5    # timed forwards of each "downsample" path
 SYNTH_IMAGES = 64
+TRAIN_STEPS = 5    # through the CLI: R1 + path, plain x3, path
+TRAIN_REPS = 3     # timed steps of each kind afterwards
+# state.step values that schedule each kind of step at d_reg_every=16,
+# g_reg_every=4
+STEP_KINDS = {"plain": 9, "path": 8, "R1 + path": 16}
+K1_KERNELS = ("rasterize_multi_kernel", "bin_classify", "bin_scan", "bin_scatter")
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -339,6 +354,182 @@ def profile_forwards(torch, gen, inputs, top_n: int = 12):
             f"{name}")
 
 
+def profile_step(torch, fn, top_n: int = 8):
+    """One call of ``fn`` (a train step) under torch.profiler: (host-clock
+    ms, device busy ms, device ms of K1 and its binning, device events,
+    the ``top_n`` host ops by the device time they launched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in on_device
+                if any(k in e.key for k in K1_KERNELS)) / 1e3
+    by_op = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.self_device_time_total > 0), reverse=True)[:top_n]
+    return wall_ms, busy_ms, k1_ms, sum(e.count for e in on_device), by_op
+
+
+def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
+    """GAR training on ``shard`` through the CLI, then each kind of step
+    timed, counted and profiled alone; fails loudly on any check."""
+    from stylerenderer_tpu_torch.cli.train import main as train_main
+    from stylerenderer_tpu_torch.data import SRPackDataset, to_train_tensor
+    from stylerenderer_tpu_torch.train import sample_draws, train_step
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    # K1 at the training shapes, before training: B=16 (D and G steps) and
+    # B=8 (the path step's pyramid), 7 levels, C=3, on the training mesh
+    from stylerenderer_tpu_torch.face3d import mesh_point_normal, random_apply_pose3D
+
+    g = torch.Generator().manual_seed(7)
+    vert = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+    norm = mesh_point_normal(vert, tri)
+    for b in (BATCH, BATCH // 2):
+        check_k1(vert[:b].contiguous(), norm[:b].contiguous(), b)
+
+    # why upfirdn2d has its own backward: ATen's double backward of the same
+    # depthwise convolution, beside the port's, at B=16, 128 channels, 64^2
+    import torch.nn.functional as F
+
+    from stylerenderer_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
+
+    x = torch.randn(BATCH, 128, 64, 64, device=dev, requires_grad=True)
+    k = make_kernel([1, 3, 3, 1], device=dev)
+    blurs = {"port": lambda v: upfirdn2d(v, k, pad=(1, 2)),
+             "ATen": lambda v: F.conv2d(F.pad(v, [1, 2, 1, 2]),
+                                        torch.flip(k, (0, 1)).expand(128, 1, 4, 4), groups=128)}
+
+    def second_order(fn):
+        (gx,) = torch.autograd.grad(fn(x).square().sum(), x, create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), x)[0]
+
+    grads = {n: second_order(f) for n, f in blurs.items()}
+    torch.testing.assert_close(grads["port"], grads["ATen"], rtol=1e-4, atol=1e-4)
+    log("upfirdn2d double backward (B=16, 128 channels, 64^2, 4x4 blur; CUDA events): "
+        + ", ".join(f"{n} {cuda_ms(torch, lambda f=f: second_order(f), 3):.3f} ms"
+                    for n, f in blurs.items()) + "; equal to 1e-4")
+    del x, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, counts = run_path("train", lambda: train_main([
+        shard, "--iter", str(TRAIN_STEPS), "--batch", str(BATCH), "--d_reg_every", "16",
+        "--g_reg_every", "4", "--log_every", "1", "--sample_every", str(TRAIN_STEPS),
+        "--ckpt_every", str(TRAIN_STEPS), "--seed", "0", "--out_dir", out]))
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(TRAIN_STEPS)]
+    want = {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds) + 1,
+            "rasterize_single": 0}  # + 1: the EMA sample grid
+    if counts != want:
+        raise AssertionError(f"train path: launches {counts}, expected {want}")
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"train path: logged steps {[r['step'] for r in rows]}")
+    for r, kind in zip(rows, kinds):
+        if not all(np.isfinite(v) for v in r.values()) or r["nonfinite_steps"] != 0:
+            raise AssertionError(f"train path: step {r['step']}: {r}")
+        if (r["r1"] != 0) != (kind == "R1 + path") or (r["path"] != 0) != (kind != "plain"):
+            raise AssertionError(f"train path: step {r['step']} ({kind}) ran the wrong terms: {r}")
+    for name in ("checkpoint/%06d.pt" % TRAIN_STEPS, "sample/%06d.png" % (TRAIN_STEPS - 1),
+                 "sample/%06d_norm.png" % (TRAIN_STEPS - 1)):
+        if not os.path.getsize(os.path.join(out, name)):
+            raise AssertionError(f"train path: {name} is empty")
+    ckpt_mb = os.path.getsize(os.path.join(out, "checkpoint/%06d.pt" % TRAIN_STEPS)) / 2 ** 20
+    log(f"train path: cli.train, GeneratorWithMap(256, 512, 8, channel_multiplier=2) + "
+        f"Discriminator(256, 2), f32 (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}), B={BATCH}, "
+        f"{TRAIN_STEPS} steps in {train_s:.1f} s (set-up, checkpoint and sample grid "
+        f"included); launches {counts}; peak memory {peak / 2 ** 30:.2f} GiB; checkpoint "
+        f"{ckpt_mb:.0f} MiB")
+    for r, kind in zip(rows, kinds):
+        log(f"  step {r['step']} ({kind}): {r['step_ms']:.1f} ms host clock; d {r['d']:.4f}, "
+            f"g {r['g']:.4f}, r1 {r['r1']:.4f}, path {r['path']:.4f}, path length "
+            f"{r['path_length']:.4f}")
+
+    # each kind of step alone, on the trained state: timed (host clock,
+    # each step ends in its finite-flag sync), counted, profiled
+    cfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4)
+    ds = SRPackDataset(shard, 256)
+    real = to_train_tensor(ds.read_batch(np.arange(BATCH)), np.random.default_rng(0)).to(dev)
+    ds.reader.close()
+    step_ms = {}
+    for kind, at in STEP_KINDS.items():
+        def one(at=at):
+            state.step = at
+            draws = sample_draws(state.generator, cfg, face, BATCH, state.g.n_latent)
+            return train_step(state, real, draws, cfg, face, tri)
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_REPS):
+            one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+        kind_peak = torch.cuda.max_memory_allocated()
+        _, counts = run_path(f"train step, {kind}", one)
+        n_k1 = 2 if kind == "plain" else 3
+        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0}:
+            raise AssertionError(f"train step ({kind}): launches {counts}")
+        wall, busy, k1_ms, n_events, by_op = profile_step(torch, one)
+        if state.nonfinite_count:
+            raise AssertionError(f"train step ({kind}): {state.nonfinite_count} non-finite steps")
+        step_ms[kind] = ms
+        k1_share = f"{k1_ms / busy:.4f}" if busy else "not measured"
+        log(f"train step, {kind}: {ms:.1f} ms (host clock, mean of {TRAIN_REPS}), "
+            f"{BATCH * 1e3 / ms:.1f} images/s; peak memory {kind_peak / 2 ** 30:.2f} GiB; "
+            f"K1 launches {n_k1}; profiled once: device busy {busy:.1f} ms of {wall:.1f} ms "
+            f"host clock (idle share {1 - busy / wall:.3f}), {n_events} device events, K1 and "
+            f"its binning {k1_ms:.3f} ms of device time (share {k1_share})")
+        for t, n, name in by_op:
+            log(f"    {t:9.3f} ms  {t / busy:6.1%}  {n:5d} calls  {name}")
+    # what the finite screen costs a plain step (the copy it restores from,
+    # the max-abs norms and the one host synchronisation): the same steps
+    # with it taken out, in turns with it in
+    import stylerenderer_tpu_torch.train.step as step_mod
+
+    screen = (step_mod._take_backup, step_mod.all_finite)
+
+    def plain_ms(with_screen):
+        if not with_screen:
+            step_mod._take_backup, step_mod.all_finite = (lambda st: [],
+                                                          lambda values, tensors: True)
+        try:
+            state.step = STEP_KINDS["plain"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_REPS):
+                draws = sample_draws(state.generator, cfg, face, BATCH, state.g.n_latent)
+                train_step(state, real, draws, cfg, face, tri)
+                state.step = STEP_KINDS["plain"]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+        finally:
+            step_mod._take_backup, step_mod.all_finite = screen
+
+    turns = [plain_ms(w) for w in (True, False, False, True)]
+    log(f"finite screen: plain steps {turns[0]:.1f}, {turns[3]:.1f} ms with it, {turns[1]:.1f}, "
+        f"{turns[2]:.1f} ms without it (host clock, mean of {TRAIN_REPS} each): it costs "
+        f"{(turns[0] + turns[3] - turns[1] - turns[2]) / 2:.1f} ms a step")
+
+    # the regularization cycle of 16 steps: 1 with R1 + path, 3 path, 12 plain
+    cycle = (step_ms["R1 + path"] + 3 * step_ms["path"] + 12 * step_ms["plain"]) / 16
+    log(f"train: {cycle:.1f} ms per step over the 16-step cycle, {BATCH * 1e3 / cycle:.1f} "
+        f"images/s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -550,9 +741,26 @@ def main() -> int:
         size = os.path.getsize(path)
         if head[:4] != b"SRPK" or size != 28 + 16 * n + n * 256 * 256 * 3:
             raise AssertionError(f"synth shard: header {head!r}, {size} bytes")
-    log(f"synth path: write_synth_dataset({SYNTH_IMAGES} images, 256 px, B={BATCH}) in "
-        f"{synth_s:.3f} s: {SYNTH_IMAGES / synth_s:.1f} images/s (host clock, shard write "
-        f"included); launches {counts}; shard {size} bytes")
+        log(f"synth path: write_synth_dataset({SYNTH_IMAGES} images, 256 px, B={BATCH}) in "
+            f"{synth_s:.3f} s: {SYNTH_IMAGES / synth_s:.1f} images/s (host clock, shard write "
+            f"included); launches {counts}; shard {size} bytes")
+
+        # ---- phase 4a, continued: training on that shard, through cli/train.py
+        def check_k1(v, n, b):
+            """K1 against its plain version at a training shape; timed."""
+            ref, plain_ms = once_ms(
+                torch, lambda: rasterize_winners_multi_ref(v, synth_tri, TOP, N_LEVELS, attrs=n))
+            max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+                rasterize_winners_multi(v, synth_tri, TOP, N_LEVELS, attrs=n), ref, True,
+                f"K1 training mesh B={b}"))
+            del ref
+            log(k1_report(f"K1 on the training mesh ({synth_tri.shape[0]} triangles), B={b}, "
+                          f"{N_LEVELS} levels, C=3, bit-equal to its plain version "
+                          f"({plain_ms:.1f} ms once)",
+                          k1_measure(torch, np, v, synth_tri, N_LEVELS, n, keys_of_bins)))
+
+        train_phase(torch, np, dev, path, os.path.join(tmp, "train"), run_path, synth_face,
+                    synth_tri, check_k1)
 
     # ---- phase 4b: the "downsample" paths -------------------------------------
     def resize_chain(top):
@@ -712,7 +920,7 @@ def main() -> int:
     # ---- phase 7: the result ------------------------------------------------
     log(f"launches by path: {json.dumps(path_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    main_paths = ("each", "synth", "downsample_fused=True", "downsample_fused=False",
+    main_paths = ("each", "synth", "train", "downsample_fused=True", "downsample_fused=False",
                   "render_mean_face")
 
     def launches(name):

@@ -1,0 +1,126 @@
+"""Training data (counterpart of ``stylerenderer_tpu/data/dataset.py``):
+an SRPack dataset, a background-thread batch pipeline and a device
+prefetch.
+
+- ``SRPackDataset``: the images of one resolution of a raw SRPack shard;
+- ``prefetch_batches``: batches read natively and turned into training
+  tensors (random horizontal flip, [-1, 1], NCHW float32) in a background
+  thread, seeded, optionally in pinned memory;
+- ``device_prefetch``: keeps ``depth`` batches in flight to the device with
+  ``non_blocking`` copies, so the copy overlaps the step.
+
+Image folders (decoded with an imaging package) are not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from stylerenderer_tpu_torch.data.srpack import CODEC_RAW, SRPackReader
+
+
+def to_train_tensor(batch_u8: np.ndarray, rng: np.random.Generator | None = None,
+                    hflip: bool = True) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` -> float32 ``[B, 3, H, W]`` in [-1, 1], each
+    sample flipped horizontally with probability 1/2 (drawn from ``rng``)."""
+    x = batch_u8.astype(np.float32) / 127.5 - 1.0
+    if hflip and rng is not None:
+        flips = rng.random(len(x)) < 0.5
+        x[flips] = x[flips, :, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+class SRPackDataset:
+    """The images at ``resolution`` of a raw SRPack shard."""
+
+    def __init__(self, path: str, resolution: int = 256):
+        self.reader = SRPackReader(path)
+        if resolution not in self.reader.sizes:
+            raise ValueError(f"resolution {resolution} missing from {path} "
+                             f"(available: {self.reader.sizes})")
+        if self.reader.codec != CODEC_RAW:
+            raise ValueError(f"{path}: JPEG shard; the port reads raw shards only "
+                             "(it carries no JPEG decoder)")
+        self.resolution = resolution
+
+    def __len__(self) -> int:
+        return self.reader.n_items
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        return self.reader.decode(self.resolution, idx)
+
+    def read_batch(self, indices) -> np.ndarray:
+        return self.reader.read_batch_raw(self.resolution, indices)
+
+
+def prefetch_batches(dataset, batch_size: int, *, seed: int = 0, train: bool = True,
+                     depth: int = 3, drop_last: bool = True,
+                     pin_memory: bool = False) -> Iterator[torch.Tensor]:
+    """Endless (``train``: shuffled epochs, random flips) or single-epoch
+    iterator of float32 ``[B, 3, H, W]`` batches in [-1, 1], assembled in a
+    background thread; ``pin_memory`` puts them in page-locked memory for
+    ``non_blocking`` copies. An error in the thread is raised here."""
+    n = len(dataset)
+    if n < (batch_size if drop_last else 1):
+        raise ValueError(f"{n} images cannot fill a batch of {batch_size}")
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        rng = np.random.default_rng(seed)
+        try:
+            while not stop.is_set():
+                order = rng.permutation(n) if train else np.arange(n)
+                for i in range(0, n - (batch_size - 1 if drop_last else 0), batch_size):
+                    batch = to_train_tensor(dataset.read_batch(order[i:i + batch_size]),
+                                            rng if train else None, hflip=train)
+                    if not put(batch.pin_memory() if pin_memory else batch):
+                        return
+                if not train:
+                    put(end)
+                    return
+        except Exception as e:  # noqa: BLE001 - handed to the consumer, which raises it
+            put(e)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)
+
+
+def device_prefetch(iterator, device, depth: int = 2) -> Iterator[torch.Tensor]:
+    """Copy the batches of ``iterator`` to ``device`` ``depth`` ahead of the
+    consumer, without blocking the host (``non_blocking``; from pinned
+    memory the copy overlaps the device's work)."""
+    buf: collections.deque = collections.deque()
+    for batch in iterator:
+        buf.append(batch.to(device, non_blocking=True))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

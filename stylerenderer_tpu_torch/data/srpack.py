@@ -1,4 +1,4 @@
-"""SRPack writer (the port's own copy of the writer in
+"""SRPack writer and reader (the port's own copy of
 ``stylerenderer_tpu/data/srpack.py``; the same bytes on disk).
 
 A shard holds every image at every requested resolution behind a flat
@@ -11,11 +11,16 @@ A shard holds every image at every requested resolution behind a flat
 - the records, in the same order.
 
 Codecs: ``raw`` (uint8 HWC pixels, decode-free) and ``jpeg`` (encoded
-bytes as given). The native reader comes with the training slice.
+bytes as given). The reader mmaps the shard in native code
+(``csrc/srpack.cpp``, built with g++ at first use, loaded with ``ctypes``)
+and gathers batches with a pool of threads. It decodes the raw codec
+only: the port carries no image decoder, so a JPEG shard's images raise
+(its records can still be read as bytes).
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import Sequence
 
@@ -72,3 +77,76 @@ class SRPackWriter:
                 for r in recs:
                     f.write(r)
         return n_items
+
+
+class SRPackReader:
+    """mmap'd reader over the native library; ``close()`` (or a ``with``
+    block) unmaps the shard."""
+
+    def __init__(self, path: str):
+        from stylerenderer_tpu_torch.ops._build import library
+
+        self._lib = library("srpack")
+        self._h = self._lib.srpack_open(path.encode())
+        if not self._h:
+            raise IOError(f"cannot open SRPack file {path!r}")
+        self.path = path
+        self.n_items = int(self._lib.srpack_n_items(self._h))
+        self.codec = int(self._lib.srpack_codec(self._h))
+        sizes = (ctypes.c_uint32 * int(self._lib.srpack_n_sizes(self._h)))()
+        self._lib.srpack_sizes(self._h, sizes)
+        self.sizes = [int(s) for s in sizes]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def size_index(self, resolution: int) -> int:
+        if resolution not in self.sizes:
+            raise KeyError(f"resolution {resolution} not in pack (have {self.sizes})")
+        return self.sizes.index(resolution)
+
+    def _check_item(self, item: int) -> None:
+        if not 0 <= item < self.n_items:
+            raise IndexError(f"item {item} out of range for {self.n_items} items")
+
+    def read_record(self, resolution: int, item: int) -> bytes:
+        """One record's bytes, whatever the codec."""
+        si = self.size_index(resolution)
+        self._check_item(item)
+        n = int(self._lib.srpack_record_length(self._h, si, item))
+        buf = (ctypes.c_uint8 * n)()
+        got = int(self._lib.srpack_read_record(self._h, si, item, buf, n))
+        return bytes(buf)[:got]
+
+    def read_batch_raw(self, resolution: int, items) -> np.ndarray:
+        """Batched zero-decode read (raw codec): -> uint8 ``[N, s, s, 3]``."""
+        if self.codec != CODEC_RAW:
+            raise ValueError(f"{self.path}: JPEG shard; the port reads raw shards only "
+                             "(it carries no JPEG decoder)")
+        si = self.size_index(resolution)
+        items = np.ascontiguousarray(items, np.int64)
+        stride = resolution * resolution * 3
+        out = np.empty((len(items), resolution, resolution, 3), np.uint8)
+        rc = self._lib.srpack_read_batch(self._h, si, items.ctypes.data, len(items),
+                                         out.ctypes.data, stride)
+        if rc != 0:
+            raise IndexError(f"srpack_read_batch failed (rc={rc}): items out of range "
+                             f"for {self.n_items} items")
+        return out
+
+    def decode(self, resolution: int, item: int) -> np.ndarray:
+        """-> uint8 ``[s, s, 3]`` (raw codec)."""
+        self._check_item(item)
+        return self.read_batch_raw(resolution, np.asarray([item]))[0]
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.srpack_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self.close()

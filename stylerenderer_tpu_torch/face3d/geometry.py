@@ -30,17 +30,33 @@ def mesh_point_normal(v: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     return normalize(vn)
 
 
-def random_apply_pose3D(generator: torch.Generator | None, v: torch.Tensor,
-                        p=(0.5, 0.1, 0.05, 0.1, 0.1, 0.1, 0.15)) -> torch.Tensor:
-    """Random rigid transform of ``v`` ``[B, nv, 3]``: ``p`` are the stddevs
-    of (yaw, pitch, roll, tx, ty, tz, log-scale); ``v @ R + t`` (row
-    vectors)."""
+POSE3D_P = (0.5, 0.1, 0.05, 0.1, 0.1, 0.1, 0.15)
+
+
+def pose3D_draws(generator: torch.Generator | None, batch: int, p=POSE3D_P) -> torch.Tensor:
+    """The pose draw of ``random_apply_pose3D``: N(0, 1) ``[batch, 7]``
+    scaled by the stddevs ``p`` (zeros where ``p`` has fewer than 7), on
+    the generator's device (the CPU without one)."""
     p = torch.as_tensor(p, dtype=torch.float32).reshape(-1)[:7].abs()
     if p.shape[0] < 7:
         p = torch.cat([p, torch.zeros(7 - p.shape[0])])
-    batch = v.shape[0] if v.ndim >= 3 else 1
-    z = torch.randn(batch, 7, generator=generator) * p[None, :]
+    gdev = generator.device if generator is not None else None
+    return torch.randn(batch, 7, generator=generator, device=gdev) * p.to(gdev)[None, :]
+
+
+def apply_pose3D(v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The rigid transform of the pose ``z`` ``[B, 7]`` (yaw, pitch, roll,
+    tx, ty, tz, log-scale): ``v @ (exp(s) R) + t`` (row vectors)."""
     z = z.to(v.device)
     R = torch.exp(z[:, -1])[:, None, None] * euler_mat(z[:, :3], "yxz")
     t = z[:, 3:6]
     return torch.einsum("bnk,bkj->bnj", v[..., :3], R) + t[:, None, :]
+
+
+def random_apply_pose3D(generator: torch.Generator | None, v: torch.Tensor,
+                        p=POSE3D_P) -> torch.Tensor:
+    """Random rigid transform of ``v`` ``[B, nv, 3]``: ``p`` are the stddevs
+    of (yaw, pitch, roll, tx, ty, tz, log-scale); ``v @ R + t`` (row
+    vectors)."""
+    batch = v.shape[0] if v.ndim >= 3 else 1
+    return apply_pose3D(v, pose3D_draws(generator, batch, p))

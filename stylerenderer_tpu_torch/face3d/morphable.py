@@ -31,9 +31,11 @@ class LinearMorphableModel:
 
     def random_input(self, batch_size: int = 1,
                      generator: torch.Generator | None = None) -> torch.Tensor:
-        """Samples from the prior, drawn on the CPU with ``generator`` (so the
-        same seed gives the same samples on any device)."""
-        x = torch.randn(batch_size, self.sigma.shape[0], generator=generator)
+        """Samples from the prior, drawn on ``generator``'s device (the CPU
+        without one; a CPU generator gives the same samples for any model
+        device)."""
+        gdev = generator.device if generator is not None else None
+        x = torch.randn(batch_size, self.sigma.shape[0], generator=generator, device=gdev)
         return x.to(self.device) * self.sigma
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """3D transform builders (counterpart of
-``stylerenderer_tpu/face3d/transforms.py``; the part the geometry needs)."""
+``stylerenderer_tpu/face3d/transforms.py``; the parts the geometry and
+the augmentation need)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,29 @@ def euler_mat(angle: torch.Tensor, order: str = "yxz") -> torch.Tensor:
         R = torch.stack(rows, -1).reshape(-1, 3, 3)
         T = R if T is None else torch.einsum("bij,bjk->bik", R, T)
     return T[0] if single else T
+
+
+def rodrigues(rvec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Axis-angle ``[..., 3]`` -> rotation ``[..., 3, 3]``:
+    ``cos(r) I + (1 - cos r)/r^2 rr^T + sin(r)/r [r]_x``, with Taylor series
+    where ``r <= eps`` so the function and its derivatives of any order stay
+    finite at r = 0."""
+    single = rvec.ndim == 1
+    if single:
+        rvec = rvec[None]
+    r2 = torch.sum(rvec * rvec, -1)
+    small = r2 <= eps * eps
+    # the sqrt sees 1 where the series is used, so its gradient stays finite
+    r2_safe = torch.where(small, torch.ones_like(r2), r2)
+    r = torch.sqrt(r2_safe)
+    c = torch.where(small, 1.0 - r2 / 2 + r2 * r2 / 24, torch.cos(r))
+    sc = torch.where(small, 1.0 - r2 / 6, torch.sin(r) / r)
+    cc = torch.where(small, 0.5 - r2 / 24, (1.0 - torch.cos(r)) / r2_safe)
+    rr = rvec[..., :, None] * rvec[..., None, :]
+    zero = torch.zeros_like(rvec[..., 0])
+    rx = torch.stack([zero, -rvec[..., 2], rvec[..., 1],
+                      rvec[..., 2], zero, -rvec[..., 0],
+                      -rvec[..., 1], rvec[..., 0], zero], -1).reshape(rvec.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    R = c[..., None, None] * eye + cc[..., None, None] * rr + sc[..., None, None] * rx
+    return R[0] if single else R

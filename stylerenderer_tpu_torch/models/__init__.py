@@ -1,5 +1,6 @@
-"""The GAR generator."""
+"""The GAR generator and the discriminator."""
 
+from stylerenderer_tpu_torch.models.discriminator import Discriminator
 from stylerenderer_tpu_torch.models.generator import (
     GeneratorWithMap,
     MappingNetwork,
@@ -11,6 +12,6 @@ from stylerenderer_tpu_torch.models.generator import (
 )
 
 __all__ = [
-    "GeneratorWithMap", "MappingNetwork", "StyledMapConv", "ToRGB",
+    "Discriminator", "GeneratorWithMap", "MappingNetwork", "StyledMapConv", "ToRGB",
     "channel_table", "make_noise", "stored_noise",
 ]

@@ -1,0 +1,64 @@
+"""The StyleGAN2 discriminator (counterpart of
+``stylerenderer_tpu/models/discriminator.py``), NCHW.
+
+State-dict names are the reference PyTorch model's, which
+``stylerenderer_tpu/utils/torch_import.py::import_discriminator`` reads:
+``convs.0`` (1x1 from-RGB), ``convs.{k}`` the downsampling ResBlocks,
+``final_conv``, ``final_linear.0`` (fused lrelu) and ``final_linear.1``.
+The 4x4 features are flattened in the reference's (C, H, W) order; the
+JAX package flattens (H, W, C), so
+``utils/weights.py::discriminator_state_dict_from_jax`` permutes the
+columns of ``final_linear.0`` between the two.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from stylerenderer_tpu_torch.device import resolve_device
+from stylerenderer_tpu_torch.models.generator import channel_table
+from stylerenderer_tpu_torch.nn.layers import (
+    ConvLayer,
+    EqualLinear,
+    ResBlock,
+    minibatch_stddev,
+    reset_parameters,
+)
+
+
+class Discriminator(nn.Module):
+    """``[B, 3, size, size]`` images -> ``[B, 1]`` logits. Parameters are
+    drawn from ``seed`` and moved to ``device`` (``"cuda"`` unless asked
+    otherwise); ``dtype`` is the compute type."""
+
+    def __init__(self, size: int, channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
+                 stddev_group: int = 4, stddev_feat: int = 1, dtype=torch.float32,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        ch = channel_table(channel_multiplier)
+        log_size = int(math.log2(size))
+        self.size, self.dtype = size, dtype
+        self.stddev_group, self.stddev_feat = stddev_group, stddev_feat
+        convs = [ConvLayer(3, ch[size], 1, dtype=dtype)]
+        in_channel = ch[size]
+        for i in range(log_size, 2, -1):
+            out_channel = ch[2 ** (i - 1)]
+            convs.append(ResBlock(in_channel, out_channel, blur_kernel, dtype=dtype))
+            in_channel = out_channel
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(in_channel + stddev_feat, ch[4], 3, dtype=dtype)
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu", dtype=dtype),
+            EqualLinear(ch[4], 1, dtype=dtype))
+        reset_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def forward(self, x):
+        out = self.convs(x.to(self.dtype))
+        out = minibatch_stddev(out, self.stddev_group, self.stddev_feat)
+        out = self.final_conv(out)
+        return self.final_linear(out.reshape(out.shape[0], -1))

@@ -110,10 +110,12 @@ def _noise_res(i: int) -> int:
 def make_noise(size: int, batch: int = 1, generator: torch.Generator | None = None,
                device=None) -> list[torch.Tensor]:
     """Per-layer noise ``[batch, 1, res, res]``: one 4x4 map, then two per
-    resolution 8..size (drawn on the CPU with ``generator``)."""
+    resolution 8..size (drawn on ``generator``'s device, the CPU without
+    one), moved to ``device``."""
     num_layers = (int(math.log2(size)) - 2) * 2 + 1
-    return [torch.randn(batch, 1, _noise_res(i), _noise_res(i),
-                        generator=generator).to(device) for i in range(num_layers)]
+    gdev = generator.device if generator is not None else None
+    return [torch.randn(batch, 1, _noise_res(i), _noise_res(i), generator=generator,
+                        device=gdev).to(device) for i in range(num_layers)]
 
 
 def stored_noise(num_layers: int) -> list[torch.Tensor]:

@@ -4,6 +4,7 @@ from stylerenderer_tpu_torch.nn.layers import (
     Blur,
     ConstantInput,
     ConvLayer,
+    Downsample,
     EqualConv2d,
     EqualLinear,
     ModulatedConv2d,
@@ -11,9 +12,11 @@ from stylerenderer_tpu_torch.nn.layers import (
     PixelNorm,
     ResBlock,
     Upsample,
+    minibatch_stddev,
 )
 
 __all__ = [
-    "Blur", "ConstantInput", "ConvLayer", "EqualConv2d", "EqualLinear",
+    "Blur", "ConstantInput", "ConvLayer", "Downsample", "EqualConv2d", "EqualLinear",
     "ModulatedConv2d", "NoiseInjection", "PixelNorm", "ResBlock", "Upsample",
+    "minibatch_stddev",
 ]

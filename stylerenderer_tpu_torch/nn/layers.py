@@ -29,7 +29,7 @@ from stylerenderer_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     scaled_leaky_relu,
 )
-from stylerenderer_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
+from stylerenderer_tpu_torch.ops.upfirdn2d import downsample2d, make_kernel, upfirdn2d
 
 
 class PixelNorm(nn.Module):
@@ -134,6 +134,18 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return upfirdn2d(x, self.kernel, up=self.factor, down=1, pad=self.pad)
+
+
+class Downsample(nn.Module):
+    """FIR 2x downsample; the kernel is a ``kernel`` buffer."""
+
+    def __init__(self, kernel=(1, 3, 3, 1), factor: int = 2):
+        super().__init__()
+        self.factor = factor
+        self.register_buffer("kernel", make_kernel(list(kernel)))
+
+    def forward(self, x):
+        return downsample2d(x, self.kernel, self.factor)
 
 
 class ModulatedConv2d(nn.Module):
@@ -266,6 +278,21 @@ class ResBlock(nn.Module):
     def forward(self, x):
         out = self.conv2(self.conv1(x))
         return (out + self.skip(x)) / math.sqrt(2)
+
+
+def minibatch_stddev(x, group_size: int = 4, num_features: int = 1):
+    """The minibatch standard-deviation channel: samples are grouped as
+    ``reshape(g, b // g, ...)`` with ``g = min(b, group_size)``; per group
+    member, the biased std over the group (``+1e-8`` inside the sqrt),
+    averaged over (C/f, H, W), is appended as ``f`` channels."""
+    b, c, h, w = x.shape
+    g = min(b, group_size)
+    f = num_features
+    y = x.reshape(g, b // g, f, c // f, h, w)
+    std = torch.sqrt(torch.var(y, dim=0, unbiased=False) + 1e-8)
+    std = torch.mean(std, dim=(2, 3, 4))  # [b // g, f]
+    std = std[None, :, :, None, None].expand(g, b // g, f, h, w).reshape(b, f, h, w)
+    return torch.cat([x, std.to(x.dtype)], 1)
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -15,7 +15,9 @@ changed source rebuilds and an unchanged one loads the library already there.
   keeps IEEE division; fast math is never on. ``-Xptxas -v`` reports registers and shared memory
   (``build_log()``).
 - ``g++`` libraries (``multi_host``, ``single_host``) of the same per-candidate
-  math for the CPU tests, ``-ffp-contract=off`` for the same reason.
+  math for the CPU tests, ``-ffp-contract=off`` for the same reason; and
+  ``srpack`` (``csrc/srpack.cpp``), the SRPack shard reader, with
+  ``-pthread``.
 """
 
 from __future__ import annotations
@@ -105,7 +107,20 @@ _MULTI_HEADERS = ("rasterize_multi.cuh", "bin_multi.cuh", "bin_passes.cuh")
 _SINGLE_HEADERS = ("rasterize_single.cuh", "bin_single.cuh", "rasterize_multi.cuh",
                    "bin_multi.cuh", "bin_passes.cuh")
 
-# name -> (compiler, source, headers, {C function: argument types})
+_P, _U32, _U64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64
+_SRPACK = {"srpack_open": ([ctypes.c_char_p], _P),
+           "srpack_close": ([_P], None),
+           "srpack_n_items": ([_P], _U64),
+           "srpack_codec": ([_P], _U32),
+           "srpack_n_sizes": ([_P], _U32),
+           "srpack_sizes": ([_P, _P], None),
+           "srpack_record_length": ([_P, _U32, _U64], _U64),
+           "srpack_read_record": ([_P, _U32, _U64, _P, _U64], _U64),
+           "srpack_read_batch": ([_P, _U32, _P, ctypes.c_int, _P, _U64], ctypes.c_int)}
+
+# name -> (compiler, source, headers, {C function: argument types, or
+# (argument types, result type) where the result is not an int status},
+# extra compiler flags)
 _SPECS = {
     "multi": ("nvcc", "rasterize_multi.cu", _MULTI_HEADERS,
               {"sr_rasterize_multi": _MULTI_ARGS + _STREAM,
@@ -121,6 +136,7 @@ _SPECS = {
     "single_host": ("g++", "rasterize_single_host.cpp", _SINGLE_HEADERS,
                     {"sr_rasterize_single_host": _SINGLE_HOST_ARGS,
                      "sr_bin_single_host": [ctypes.c_void_p] * 5 + _BIN_SINGLE_SHAPE}),
+    "srpack": ("g++", "srpack.cpp", (), _SRPACK, ("-pthread",)),
 }
 CUDA_LIBRARIES = tuple(n for n, spec in _SPECS.items() if spec[0] == "nvcc")
 
@@ -135,16 +151,18 @@ def _gxx() -> str:
 def library(name: str) -> ctypes.CDLL:
     """Build (unless built) and load the library ``name`` of ``_SPECS``."""
     if name not in _LIBS:
-        compiler, source, headers, functions = _SPECS[name]
+        compiler, source, headers, functions, *extra = _SPECS[name]
         if compiler == "nvcc":
             lib = _build(name, [_find_nvcc()], NVCC_FLAGS, source, headers)
             lib.sr_error_string.argtypes = [ctypes.c_int]
             lib.sr_error_string.restype = ctypes.c_char_p
         else:
-            lib = _build(name, [_gxx()], GXX_FLAGS, source, headers)
-        for fn, argtypes in functions.items():
+            flags = GXX_FLAGS + (extra[0] if extra else ())
+            lib = _build(name, [_gxx()], flags, source, headers)
+        for fn, spec in functions.items():
+            argtypes, restype = spec if isinstance(spec, tuple) else (spec, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         # cached only now: a caller never sees ctypes' default conversions
         _LIBS[name] = lib
     return _LIBS[name]

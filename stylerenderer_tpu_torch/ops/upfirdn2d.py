@@ -10,6 +10,14 @@ Output size per dim: ``(in*up + pad0 + pad1 - kernel) // down + 1``.
 The JAX package does this in one XLA convolution; here it is a reshape for
 the zero-stuffing, ``F.pad`` (which crops on negative pads) and one
 depthwise ``F.conv2d`` whose stride decimates. Layout: NCHW.
+
+The op is linear in ``x``, and its gradient is again an ``upfirdn2d``
+(``up`` and ``down`` swapped, the kernel flipped, the pads from the
+shapes), written as an ``autograd.Function`` whose backward calls itself.
+So gradients of any order are depthwise forward convolutions: ATen's
+double backward of a grouped convolution runs one convolution per channel
+(4.2 s for 16 x 128 x 256 x 256 on an H100), which the path-length and R1
+penalties would hit in every Blur and Upsample.
 """
 
 from __future__ import annotations
@@ -44,23 +52,60 @@ def _pads(pad):
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up=1, down=1,
               pad=(0, 0)) -> torch.Tensor:
-    """Upsample-FIR-downsample ``x`` ``[B, C, H, W]`` with ``kernel`` ``[kh, kw]``.
+    """Upsample-FIR-downsample ``x`` ``[B, C, H, W]`` with ``kernel`` ``[kh, kw]``
+    (a constant: no gradient flows to it).
 
     ``up``/``down`` are ints or ``(x, y)`` pairs; ``pad`` is ``(pad0, pad1)``
     for both dims or ``(pad_x0, pad_x1, pad_y0, pad_y1)``.
     """
-    up_x, up_y = _as_pair(up)
-    down_x, down_y = _as_pair(down)
-    pad_x0, pad_x1, pad_y0, pad_y1 = _pads(pad)
+    up, down, pad = _as_pair(up), _as_pair(down), _pads(pad)
     b, c, h, w = x.shape
     kh, kw = kernel.shape
-    out_h = (h * up_y + pad_y0 + pad_y1 - kh) // down_y + 1
-    out_w = (w * up_x + pad_x0 + pad_x1 - kw) // down_x + 1
+    out_h, out_w = _out_size(h, w, kh, kw, up, down, pad)
     if out_h <= 0 or out_w <= 0:
         raise ValueError(
-            f"upfirdn2d produces empty output: in={h}x{w} up={up_y}x{up_x} "
-            f"pad=({pad_y0},{pad_y1},{pad_x0},{pad_x1}) k={kh}x{kw} "
-            f"down={down_y}x{down_x}")
+            f"upfirdn2d produces empty output: in={h}x{w} up={up[1]}x{up[0]} "
+            f"pad=({pad[2]},{pad[3]},{pad[0]},{pad[1]}) k={kh}x{kw} "
+            f"down={down[1]}x{down[0]}")
+    return _UpFirDn2d.apply(x, kernel.detach(), up, down, pad)
+
+
+def _out_size(h, w, kh, kw, up, down, pad):
+    return ((h * up[1] + pad[2] + pad[3] - kh) // down[1] + 1,
+            (w * up[0] + pad[0] + pad[1] - kw) // down[0] + 1)
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """``upfirdn2d`` whose backward is the adjoint ``upfirdn2d``: zero-stuff
+    the output gradient by ``down``, pad by ``k - 1 - pad0`` before and what
+    restores the input length after, convolve with the flipped kernel,
+    decimate by ``up``. The backward calls this Function again, so every
+    order of differentiation stays a depthwise forward convolution."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad):
+        ctx.save_for_backward(kernel)
+        ctx.args = (x.shape[2], x.shape[3], up, down, pad)
+        return _upfirdn2d_conv(x, kernel, up, down, pad)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (kernel,) = ctx.saved_tensors
+        h, w, up, down, pad = ctx.args
+        kh, kw = kernel.shape
+        out_h, out_w = gy.shape[2], gy.shape[3]
+        gpad = (kw - pad[0] - 1, w * up[0] - out_w * down[0] + pad[0] - up[0] + 1,
+                kh - pad[2] - 1, h * up[1] - out_h * down[1] + pad[2] - up[1] + 1)
+        gx = _UpFirDn2d.apply(gy, torch.flip(kernel, (0, 1)), down, up, gpad)
+        return gx, None, None, None, None
+
+
+def _upfirdn2d_conv(x, kernel, up, down, pad):
+    (up_x, up_y), (down_x, down_y) = up, down
+    pad_x0, pad_x1, pad_y0, pad_y1 = pad
+    b, c, h, w = x.shape
+    kh, kw = kernel.shape
+    out_h, out_w = _out_size(h, w, kh, kw, up, down, pad)
     if up_x > 1 or up_y > 1:
         x = x.reshape(b, c, h, 1, w, 1)
         x = F.pad(x, [0, up_x - 1, 0, 0, 0, up_y - 1])

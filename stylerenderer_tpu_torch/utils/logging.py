@@ -1,0 +1,91 @@
+"""Metrics logging and step timing (counterpart of
+``stylerenderer_tpu/utils/logging.py``).
+
+``MetricsLogger`` appends one JSON row per call to ``metrics.jsonl``
+through a raw ``O_APPEND`` descriptor, one ``os.write`` per row (no
+buffered file object whose tail a crash could lose), and mirrors the rows
+to tensorboardX when it is installed and to wandb when asked.
+``StepTimer`` tracks the rolling step time and images per second.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any
+
+
+class MetricsLogger:
+    def __init__(self, log_dir: str, use_wandb: bool = False,
+                 project: str = "stylerenderer-tpu"):
+        os.makedirs(log_dir, exist_ok=True)
+        self._fd = os.open(os.path.join(log_dir, "metrics.jsonl"),
+                           os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        self._tb = None
+        try:
+            import tensorboardX
+        except ImportError:
+            pass
+        else:
+            self._tb = tensorboardX.SummaryWriter(logdir=log_dir)
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError as e:
+                os.close(self._fd)
+                raise RuntimeError("--wandb was asked for but wandb is not installed") from e
+            wandb.init(project=project)
+            self._wandb = wandb
+
+    def log(self, step: int, data: dict[str, Any]) -> None:
+        clean = {}
+        for k, v in data.items():
+            try:
+                clean[k] = float(v)
+            except (TypeError, ValueError):
+                continue
+        view = memoryview((json.dumps({"step": int(step), **clean}) + "\n").encode())
+        # os.write may write short (a signal, a full disk): loop so a row is
+        # never silently cut; errors such as ENOSPC raise
+        while view:
+            view = view[os.write(self._fd, view):]
+        if self._tb is not None:
+            for k, v in clean.items():
+                self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(clean, step=step)
+
+    def close(self) -> None:
+        os.close(self._fd)
+        if self._tb is not None:
+            self._tb.close()
+
+
+class StepTimer:
+    """Rolling step time and throughput over the last ``window`` ticks."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self._times: list[float] = []
+        self._last = None
+
+    def tick(self) -> float | None:
+        now = time.perf_counter()
+        dt = None
+        if self._last is not None:
+            dt = now - self._last
+            self._times.append(dt)
+            if len(self._times) > self.window:
+                self._times.pop(0)
+        self._last = now
+        return dt
+
+    @property
+    def mean_step_time(self) -> float:
+        return sum(self._times) / len(self._times) if self._times else 0.0
+
+    def images_per_sec(self, batch: int) -> float:
+        t = self.mean_step_time
+        return batch / t if t > 0 else 0.0

@@ -1,9 +1,10 @@
-"""Carry JAX ``GeneratorWithMap`` parameters into the port.
+"""Carry JAX ``GeneratorWithMap`` and ``Discriminator`` parameters into
+the port.
 
-The inverse of ``stylerenderer_tpu/utils/torch_import.py::import_generator``
-(``with_map=True``): a flax params tree of numpy arrays becomes a state dict
-with the reference PyTorch model's names and layouts, which the port's
-``GeneratorWithMap.load_state_dict(strict=True)`` accepts.
+The inverses of ``stylerenderer_tpu/utils/torch_import.py::import_generator``
+(``with_map=True``) and ``import_discriminator``: a flax params tree of
+numpy arrays becomes a state dict with the reference PyTorch model's names
+and layouts, which the port's ``load_state_dict(strict=True)`` accepts.
 
 - flax linear ``[in, out]``        -> ``[out, in]``
 - conv HWIO ``[kh, kw, in, out]``  -> OIHW (modulated conv: ``[1, out, in, kh, kw]``)
@@ -49,17 +50,24 @@ def _to_rgb(sd, prefix, p):
     sd[f"{prefix}.bias"] = _t(np.asarray(p["bias"]).reshape(1, 3, 1, 1))
 
 
-def _conv_layer(sd, prefix, p):
-    sd[f"{prefix}.0.weight"] = _t(np.transpose(np.asarray(p["conv"]["weight"]), (3, 2, 0, 1)))
+def _conv_layer(sd, prefix, p, blur=None):
+    """``[Blur] EqualConv2d [FusedLeakyReLU]``: with a downsampling ``blur``
+    kernel the conv sits at index 1, after the Blur's ``kernel`` buffer."""
+    ci = 0
+    if blur is not None:
+        sd[f"{prefix}.0.kernel"] = blur.clone()
+        ci = 1
+    sd[f"{prefix}.{ci}.weight"] = _t(np.transpose(np.asarray(p["conv"]["weight"]), (3, 2, 0, 1)))
     if "bias" in p["conv"]:
-        sd[f"{prefix}.0.bias"] = _t(p["conv"]["bias"])
+        sd[f"{prefix}.{ci}.bias"] = _t(p["conv"]["bias"])
     if "act_bias" in p:
-        sd[f"{prefix}.1.bias"] = _t(p["act_bias"])
+        sd[f"{prefix}.{ci + 1}.bias"] = _t(p["act_bias"])
 
 
-def _res_block(sd, prefix, p):
-    for name in ("conv1", "conv2", "skip"):
-        _conv_layer(sd, f"{prefix}.{name}", p[name])
+def _res_block(sd, prefix, p, blur=None):
+    _conv_layer(sd, f"{prefix}.conv1", p["conv1"])
+    _conv_layer(sd, f"{prefix}.conv2", p["conv2"], blur)
+    _conv_layer(sd, f"{prefix}.skip", p["skip"], blur)
 
 
 def noise_from_jax(noise) -> list[torch.Tensor]:
@@ -93,4 +101,27 @@ def state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
     nz = noise_from_jax(noise) if noise is not None else stored_noise(num_layers)
     for i in range(num_layers):
         sd[f"noises.noise_{i}"] = nz[i][:1].clone()
+    return sd
+
+
+def discriminator_state_dict_from_jax(params, size: int, blur_kernel=(1, 3, 3, 1)) -> dict:
+    """JAX ``Discriminator`` params -> the port's state dict.
+
+    ``final_linear.0`` takes the 4x4 features flattened in (C, H, W) order,
+    the JAX model's in (H, W, C) order: its input columns are permuted so
+    both compute the same function. ``import_discriminator`` of the result
+    therefore gives back every array unchanged except that weight, whose
+    rows come back in (C, H, W) order."""
+    log_size = int(np.log2(size))
+    blur = make_kernel(list(blur_kernel))
+    sd: dict[str, torch.Tensor] = {}
+    _conv_layer(sd, "convs.0", params["from_rgb"])
+    for idx, i in enumerate(range(log_size, 2, -1)):
+        _res_block(sd, f"convs.{idx + 1}", params[f"block{i}"], blur)
+    _conv_layer(sd, "final_conv", params["final_conv"])
+    w = np.asarray(params["final_linear0"]["weight"])  # [(h, w, c), out]
+    c = w.shape[0] // 16
+    w = np.transpose(w.reshape(4, 4, c, -1), (2, 0, 1, 3)).reshape(16 * c, -1)
+    _linear(sd, "final_linear.0", dict(params["final_linear0"], weight=w))
+    _linear(sd, "final_linear.1", params["final_linear1"])
     return sd

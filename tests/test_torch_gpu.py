@@ -208,3 +208,107 @@ def test_cuda_rasterize_production_size_takes_single_kernel(cuda):
     assert rasterize_winners_multi.launches == multi
     ref = rasterize(vert, norm, tri, 256, 192, method="dense")
     np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+def _to(obj, device):
+    """A step's draws (dataclasses, lists, tensors) moved to ``device``."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, list):
+        return [_to(x, device) for x in obj]
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: _to(getattr(obj, f.name), device)
+                            for f in dataclasses.fields(obj)})
+    return obj
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
+    """One train step (R1 and path both fire; K1 renders the pyramids) at
+    the same weights and draws on the card and on the CPU, TF32 off. The
+    card's step runs first and records each update's gradients and the
+    parameters it produced; the CPU's step then takes those parameters at
+    each update instead of its own Adam step (Adam's first step is about
+    ``lr * sign(g)``, which would turn rounding into parameter differences
+    of ``lr``), so every loss and gradient is taken at the same parameters:
+    metrics to 1e-4, each update's gradients to 1e-3 of each tensor's
+    largest magnitude. K1 launches three times on the card."""
+    import stylerenderer_tpu_torch.train.step as step_mod
+    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(size=16, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
+                      d_reg_every=2, g_reg_every=2)
+    face, tri = synthetic_face(12, 24, 4, 2, device="cpu")
+    face_card = synthetic_face(12, 24, 4, 2, device=cuda)[0]
+    states = {"cpu": init_train_state(cfg, "cpu", seed=1), "cuda": init_train_state(cfg, cuda)}
+    for name in ("g", "d", "g_ema"):
+        getattr(states["cuda"], name).load_state_dict(getattr(states["cpu"], name).state_dict())
+    draws = sample_draws(torch.Generator().manual_seed(2), cfg, face, 4, states["cpu"].g.n_latent)
+    real = torch.rand(4, 3, 16, 16, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    adam = step_mod._adam_step
+    card, cpu = [], []
+
+    def on_card(opt, params, grads):
+        adam(opt, params, grads)
+        card.append(([g.detach().to("cpu", copy=True) for g in grads],
+                     [p.detach().to("cpu", copy=True) for p in params]))
+
+    def on_cpu(opt, params, grads):
+        cpu.append([g.detach().clone() for g in grads])
+        with torch.no_grad():
+            for p, q in zip(params, card[len(cpu) - 1][1]):
+                p.copy_(q)
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        monkeypatch.setattr(step_mod, "_adam_step", on_card)
+        before = rasterize_winners_multi.launches
+        m_card = train_step(states["cuda"], real.to(cuda), _to(draws, cuda), cfg, face_card,
+                            tri.to(cuda))
+        assert rasterize_winners_multi.launches == before + 3
+        monkeypatch.setattr(step_mod, "_adam_step", on_cpu)
+        m_cpu = train_step(states["cpu"], real, draws, cfg, face, tri)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(float(m_card[k]), float(v), rtol=1e-4, atol=1e-6, err_msg=k)
+    assert len(card) == len(cpu) == 4
+    for u, ((gg, _), gc) in enumerate(zip(card, cpu)):
+        for i, (a, b) in enumerate(zip(gg, gc)):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            assert err <= 1e-3 * max(scale, 1e-30), (u, i, err, scale)
+
+
+@pytest.mark.gpu
+def test_cuda_finite_screen(cuda):
+    """The screen's max-abs norms see a NaN or an infinity anywhere on the
+    card."""
+    from stylerenderer_tpu_torch.train.step import all_finite
+
+    ts = [torch.randn(1000, device=cuda), torch.randn(3, 7, device=cuda)]
+    assert all_finite([torch.tensor(1.0, device=cuda)], ts)
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        t = ts[0].clone()
+        t[517] = bad
+        assert not all_finite([], [ts[1], t])
+        assert not all_finite([torch.tensor(bad, device=cuda)], ts)
+
+
+@pytest.mark.gpu
+def test_cuda_discriminator_r1_finite_at_256(cuda):
+    """R1 through the 256 px Discriminator (channel multiplier 2) at B=4:
+    a finite penalty and finite gradients in every parameter."""
+    from stylerenderer_tpu_torch.models import Discriminator
+    from stylerenderer_tpu_torch.train import r1_penalty
+
+    d = Discriminator(256, 2, device=cuda)
+    real = torch.rand(4, 3, 256, 256, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    r1 = r1_penalty(d, real.to(cuda))
+    grads = torch.autograd.grad(r1, list(d.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    assert torch.isfinite(r1) and float(r1.detach()) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

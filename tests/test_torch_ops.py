@@ -2,11 +2,13 @@
 
 ``fused_leaky_relu`` and ``upfirdn2d`` (up, down, blur, negative pads) take
 the same numpy inputs as the JAX ops and as the numpy float64 oracle
-``upfirdn2d_ref``; f32, atol 1e-5. NCHW on the port's side, NHWC on JAX's:
+``upfirdn2d_ref``; f32, atol 1e-5. ``upfirdn2d``'s gradients are held
+against JAX's VJP and checked to second order in float64. NCHW on the port's side, NHWC on JAX's:
 the tests transpose at the boundary."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -95,6 +97,30 @@ def test_upfirdn2d_matches_jax_and_oracle(case):
     oracle = np.transpose(upfirdn2d_ref(np.transpose(x, (0, 3, 1, 2)), k, up, down, pad),
                           (0, 2, 3, 1))
     np.testing.assert_allclose(out, oracle, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", UPFIRDN_CASES)
+def test_upfirdn2d_gradients(case):
+    """The gradient, itself an ``upfirdn2d``, equals JAX's VJP (1e-5), and
+    first and second derivatives pass ``gradcheck`` in float64 (its fast
+    mode: a random projection of each Jacobian)."""
+    in_h, in_w, kh, kw, up, down, pad = case
+    x = _rand((2, in_h, in_w, 3))
+    k = _rand((kh, kw), seed=1)
+    y, vjp = jax.vjp(lambda v: j_upfirdn2d(v, jnp.asarray(k), up, down, pad), jnp.asarray(x))
+    ct = _rand(y.shape, seed=2)
+    xp = _nchw(x).requires_grad_(True)
+    (gx,) = torch.autograd.grad(upfirdn2d(xp, torch.from_numpy(k), up, down, pad), xp,
+                                _nchw(ct))
+    np.testing.assert_allclose(_nhwc(gx.detach()), np.asarray(vjp(jnp.asarray(ct))[0]), rtol=0,
+                               atol=1e-5)
+    x64 = _nchw(x).double()[:1, :1].requires_grad_(True)
+    k64 = torch.from_numpy(k).double()
+    def f(v):
+        return upfirdn2d(v, k64, up, down, pad)
+
+    assert torch.autograd.gradcheck(f, (x64,), fast_mode=True)
+    assert torch.autograd.gradgradcheck(f, (x64,), fast_mode=True)
 
 
 def test_upfirdn2d_rejects_empty_output():
