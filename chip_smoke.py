@@ -21,7 +21,15 @@ entry points a user calls, and prints what it measured:
   and a sample grid; then each kind of step timed alone, its peak memory,
   and K1's share of its device time from the profiler;
 - ``render_mean_face`` at 256 x 192 (K2);
-- the generation CLI.
+- render inverting at full width (f32) on the 100,240-triangle face mesh
+  against targets rendered from a known latent, 3DMM input and pose, 20
+  Adam steps of pixel, landmark, prior and pose terms: ``each`` at B=8
+  and B=16 (K1 at 7 levels every step, with vertex gradients through the
+  fused pyramid), ``downsample`` fused (K1 at one level) and unfused (K2)
+  at B=8, each timed, counted, profiled and held to a finite, falling
+  loss; K1 bit for bit on the fitted vertices;
+- the generation CLI, and both CLIs (``generate``, ``project``) on the
+  training phase's checkpoint (``--ckpt``).
 
 K1 is timed at the ``each`` shapes (7 levels, C=3), at the training
 shapes (the 9,024-triangle mesh at B=16 and B=8, 7 levels, C=3) and at
@@ -63,7 +71,13 @@ TRAIN_REPS = 3     # timed steps of each kind afterwards
 # state.step values that schedule each kind of step at d_reg_every=16,
 # g_reg_every=4
 STEP_KINDS = {"plain": 9, "path": 8, "R1 + path": 16}
-K1_KERNELS = ("rasterize_multi_kernel", "bin_classify", "bin_scan", "bin_scatter")
+BIN_KERNELS = ("bin_classify", "bin_scan", "bin_scatter", "bin_single_classify",
+               "bin_single_scatter")
+INV_ITERS = 20     # Adam steps of each timed fit
+# (pyramid_mode, fused_pyramid, batch) of the inversion runs
+INV_RUNS = (("each", True, 8), ("each", True, 16), ("downsample", True, 8),
+            ("downsample", False, 8))
+INV_LANDMARKS = 68
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -355,9 +369,11 @@ def profile_forwards(torch, gen, inputs, top_n: int = 12):
 
 
 def profile_step(torch, fn, top_n: int = 8):
-    """One call of ``fn`` (a train step) under torch.profiler: (host-clock
-    ms, device busy ms, device ms of K1 and its binning, device events,
-    the ``top_n`` host ops by the device time they launched)."""
+    """One call of ``fn`` (a train step or a projector call) under
+    torch.profiler -> host-clock ms, device busy ms, device ms of the
+    rasterizer kernels, of their card binnings and of ``_FusedLevels``'
+    backward (its children's device time), the number of device events,
+    and the ``top_n`` host ops by the device time they launched."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -366,15 +382,23 @@ def profile_step(torch, fn, top_n: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in on_device
-                if any(k in e.key for k in K1_KERNELS)) / 1e3
-    by_op = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CPU
-                    and e.self_device_time_total > 0), reverse=True)[:top_n]
-    return wall_ms, busy_ms, k1_ms, sum(e.count for e in on_device), by_op
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def dev_ms(names):
+        return sum(e.self_device_time_total for e in on_device
+                   if any(k in e.key for k in names)) / 1e3
+
+    bwd = [e.device_time_total for e in on_host if "_FusedLevelsBackward" in e.key]
+    by_op = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in on_host
+                    if e.self_device_time_total > 0), reverse=True)[:top_n]
+    return {"wall_ms": wall_ms,
+            "busy_ms": sum(e.self_device_time_total for e in on_device) / 1e3,
+            "kernel_ms": dev_ms(("rasterize_multi_kernel", "rasterize_single_kernel")),
+            "bins_ms": dev_ms(BIN_KERNELS),
+            "fused_bwd_ms": max(bwd) / 1e3 if bwd else 0.0,
+            "events": sum(e.count for e in on_device), "by_op": by_op}
 
 
 def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
@@ -483,7 +507,9 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
         n_k1 = 2 if kind == "plain" else 3
         if counts != {"rasterize_multi": n_k1, "rasterize_single": 0}:
             raise AssertionError(f"train step ({kind}): launches {counts}")
-        wall, busy, k1_ms, n_events, by_op = profile_step(torch, one)
+        prof = profile_step(torch, one)
+        wall, busy, n_events = prof["wall_ms"], prof["busy_ms"], prof["events"]
+        k1_ms = prof["kernel_ms"] + prof["bins_ms"]
         if state.nonfinite_count:
             raise AssertionError(f"train step ({kind}): {state.nonfinite_count} non-finite steps")
         step_ms[kind] = ms
@@ -493,7 +519,7 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
             f"K1 launches {n_k1}; profiled once: device busy {busy:.1f} ms of {wall:.1f} ms "
             f"host clock (idle share {1 - busy / wall:.3f}), {n_events} device events, K1 and "
             f"its binning {k1_ms:.3f} ms of device time (share {k1_share})")
-        for t, n, name in by_op:
+        for t, n, name in prof["by_op"]:
             log(f"    {t:9.3f} ms  {t / busy:6.1%}  {n:5d} calls  {name}")
     # what the finite screen costs a plain step (the copy it restores from,
     # the max-abs norms and the one host synchronisation): the same steps
@@ -530,6 +556,108 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
         f"images/s")
 
 
+def inversion_phase(torch, np, dev, face, tri, run_path, check_fitted):
+    """Render inverting at full width through ``make_projector``: targets
+    rendered from a known latent, 3DMM input and pose with zero noise (as
+    ``scripts/recon_demo.py``), then each of ``INV_RUNS`` fitted for
+    ``INV_ITERS`` steps after a warm-up fit, timed (host clock, CUDA
+    events), counted, profiled (a 1-step and a 2-step call; their difference
+    is one step), and held to finite,
+    falling losses; ``check_fitted`` takes the B=16 ``each`` fit's
+    vertices. Returns two target images ``[2, 256, 256, 3]`` in [-1, 1]."""
+    from stylerenderer_tpu_torch.face3d import mesh_point_normal
+    from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
+    from stylerenderer_tpu_torch.inversion.project import _apply_pose
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+
+    nv = face.mean.shape[0] // 3
+    lmk_vidx = torch.linspace(0, nv - 1, INV_LANDMARKS).long()
+    gens = {(mode, fused): GeneratorWithMap(256, 512, 8, channel_multiplier=2, seed=0,
+                                            pyramid_mode=mode, fused_pyramid=fused,
+                                            device=dev)
+            for mode, fused, _ in INV_RUNS}
+    B = max(b for _, _, b in INV_RUNS)
+    g = torch.Generator().manual_seed(11)
+    z = torch.randn(B, 512, generator=g).to(dev)
+    x = face.random_input(B, g)
+    pose = [(torch.randn(B, n, generator=g) * s).to(dev)
+            for n, s in ((3, 0.15), (3, 0.05), (1, 0.05))]
+    with torch.no_grad():
+        vert = _apply_pose(face(x), *pose)
+        gen = gens[("each", True)].eval()
+        target = gen([z], (vert, mesh_point_normal(vert, tri), tri),
+                     noise=[torch.zeros(1, 1, 1, 1, device=dev)] * gen.num_layers)[0]
+        target = target.clamp(-1, 1)
+        lv = vert[:, lmk_vidx]
+        target_lmk = torch.stack([(1 + lv[..., 0]) * 256 / 2 - 0.5,
+                                  (1 - lv[..., 1]) * 256 / 2 - 0.5], -1)
+    cfg = ProjectorConfig(iters=INV_ITERS, w_lpips=0.0)
+    log(f"inversion: GeneratorWithMap(256, 512, 8, channel_multiplier=2) f32 "
+        f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), synthetic_face(180, 280, 80, "
+        f"29) ({tri.shape[0]} triangles), {INV_LANDMARKS} landmarks, ProjectorConfig("
+        f"iters={INV_ITERS}, w_lpips=0): pixel L2, landmarks, prior, pose; self-rendered "
+        f"targets")
+    for mode, fused, b in INV_RUNS:
+        project = make_projector(gens[(mode, fused)], face, tri, cfg, lmk_vidx=lmk_vidx)
+        tgt, lmk = target[:b], target_lmk[:b]
+        project(0, tgt, lmk, n_steps=2)  # warm-up: cuDNN plans, the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"inversion {mode}{'' if fused else ' unfused'} B={b}"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out, counts = run_path(name, lambda: project(0, tgt, lmk, return_state=True))
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ev_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        kernel = "rasterize_multi" if fused else "rasterize_single"
+        want = {"rasterize_multi": 0, "rasterize_single": 0}
+        want[kernel] = INV_ITERS + 1  # one forward a step, one for the final render
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        hist = out["loss_history"].cpu().numpy()
+        if hist.shape != (INV_ITERS,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]:
+            raise AssertionError(f"{name}: loss history {hist}")
+        for k in ("render", "vertices", "w_plus"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"{name}: non-finite {k}")
+        if tuple(out["render"].shape) != (b, 3, 256, 256):
+            raise AssertionError(f"{name}: render {tuple(out['render'].shape)}")
+        # one step's device time: the profiled calls of 2 steps and of 1 step
+        # (each with its final render) differ by one step; the profiler slows
+        # the host, not the device, so the busy share is taken against the
+        # unprofiled host clock
+        prof = [profile_step(torch, lambda n=n: project(0, tgt, lmk, state=out["state"],
+                                                        n_steps=n), top_n=6) for n in (1, 2)]
+        step = {k: prof[1][k] - prof[0][k] for k in ("busy_ms", "kernel_ms", "bins_ms",
+                                                     "fused_bwd_ms", "events")}
+        busy = step["busy_ms"]
+        log(f"{name}: {INV_ITERS} steps in {wall_ms:.1f} ms host clock, "
+            f"{wall_ms / INV_ITERS:.1f} ms per step ({ev_ms / INV_ITERS:.1f} ms per step "
+            f"between CUDA events; both include the init and the final render); launches "
+            f"{counts}; peak memory {peak / 2 ** 30:.2f} GiB; loss {hist[0]:.5f} -> "
+            f"{hist[-1]:.5f}; final terms "
+            + ", ".join(f"{k} {float(v):.5f}" for k, v in out["losses"].items()))
+        log(f"  one step (profiled 2-step call minus 1-step call): device busy {busy:.1f} ms "
+            f"(busy share {busy / (wall_ms / INV_ITERS):.3f} of the unprofiled host ms per "
+            f"step), {step['events']} device events; {kernel} kernel "
+            f"{step['kernel_ms']:.3f} ms, its card binning {step['bins_ms']:.3f} ms (share "
+            f"{(step['kernel_ms'] + step['bins_ms']) / busy:.4f}), _FusedLevels backward "
+            f"{step['fused_bwd_ms']:.3f} ms (share {step['fused_bwd_ms'] / busy:.4f}); the "
+            f"2-step call under the profiler: {prof[1]['busy_ms']:.1f} ms busy of "
+            f"{prof[1]['wall_ms']:.1f} ms host clock")
+        for t, n, op in prof[1]["by_op"]:
+            log(f"    {t:9.3f} ms  {t / prof[1]['busy_ms']:6.1%}  {n:5d} calls  {op}")
+        if (mode, b) == ("each", B):
+            check_fitted(out["vertices"])
+        del out
+    return target[:2].permute(0, 2, 3, 1).cpu().numpy()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -540,7 +668,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, keys_of_bins, single_case
+    from torch_meshes import (
+        KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins,
+        single_case,
+    )
     from stylerenderer_tpu_torch.cli.generate import main as generate_main
     from stylerenderer_tpu_torch.data import write_synth_dataset
     from stylerenderer_tpu_torch.face3d import (
@@ -579,6 +710,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # the training phase's checkpoint outlives its shard: phase 6 reads it
+    work = tempfile.TemporaryDirectory()
 
     # ---- phase 1: the card ------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -630,6 +763,18 @@ def main() -> int:
                                              compare_multi(o, r, attrs is not None, name))
         log(f"check: {name} (top {top}, {n_levels} levels, tile {tile}, perspective "
             f"{persp}): both modes bit-equal")
+    nan_idx = tuple(torch.tensor(NAN_DEPTH_PIXELS_16, device=dev).T)
+    for name in ("nan_depth", "nan_depth_chunks"):
+        v, t_, a, top, n_levels, tile, _ = kernel_case(name)
+        v, t_, a = (torch.from_numpy(x_).to(dev) for x_ in (v, t_, a))
+        (val, win), *_ = rasterize_winners_multi(v, t_, top, n_levels, attrs=a, tile=tile)
+        win2 = rasterize_winners_single(v, t_, top, top)
+        if not (bool((win[nan_idx] == -1).all()) and bool((val[nan_idx] == 0).all())
+                and bool((win2[nan_idx] == -1).all())):
+            raise AssertionError(f"{name}: a pixel a NaN depth covers is not background")
+    log(f"check: NaN depth (nan_depth, nan_depth_chunks): K1 and K2 give -1 and the "
+        f"background value at the {len(NAN_DEPTH_PIXELS_16)} pixels the NaN-depth triangle "
+        f"covers, bit-equal to their plain versions")
 
     # ---- phase 3a: K2 against its plain version -----------------------------
     for name in sorted(SINGLE_CASES):
@@ -759,8 +904,8 @@ def main() -> int:
                           f"({plain_ms:.1f} ms once)",
                           k1_measure(torch, np, v, synth_tri, N_LEVELS, n, keys_of_bins)))
 
-        train_phase(torch, np, dev, path, os.path.join(tmp, "train"), run_path, synth_face,
-                    synth_tri, check_k1)
+        train_phase(torch, np, dev, path, os.path.join(work.name, "train"), run_path,
+                    synth_face, synth_tri, check_k1)
 
     # ---- phase 4b: the "downsample" paths -------------------------------------
     def resize_chain(top):
@@ -876,6 +1021,21 @@ def main() -> int:
     log(k1_report(f"K1 at one level on the same input (tile {TILE}, C=3, the fused downsample "
                   "path)", k1_one) + f"; plain version {k1_one_plain_ms:.1f} ms (once)")
 
+    # ---- phase 4e: render inverting at full width -----------------------------
+    def check_fitted(v):
+        """K1 on the fitted vertices (B=16), held on 2 samples against its
+        plain version."""
+        n = mesh_point_normal(v, tri)
+        out = rasterize_winners_multi(v, tri, TOP, N_LEVELS, attrs=n)
+        ref, plain_ms = once_ms(torch, lambda: rasterize_winners_multi_ref(
+            v[:2], tri, TOP, N_LEVELS, attrs=n[:2]))
+        max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+            [(a[:2], w[:2]) for a, w in out], ref, True, "K1 on the fitted vertices"))
+        log(f"check: K1 on the B={v.shape[0]} each fit's fitted vertices, {N_LEVELS} levels, "
+            f"C=3: samples 0 and 1 bit-equal to the plain version ({plain_ms:.1f} ms once)")
+
+    photos = inversion_phase(torch, np, dev, face, tri, run_path, check_fitted)
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -917,11 +1077,52 @@ def main() -> int:
     log(f"cli: generate --with_map --size 256 --sample 4 --pics 1: {cli_s:.1f} s, "
         f"PNG {size} bytes")
 
+    # ---- phase 6, continued: both CLIs on the training phase's checkpoint -----
+    from stylerenderer_tpu_torch.cli.project import main as project_main
+    from stylerenderer_tpu_torch.utils.image import to_uint8, write_png
+
+    ckpt = os.path.join(work.name, "train", "checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        pngs = []
+        for i, img in enumerate(photos):
+            pngs.append(os.path.join(tmp, f"photo{i}.png"))
+            write_png(pngs[-1], to_uint8(img))
+        out_dir = os.path.join(tmp, "recon")
+        t0 = time.perf_counter()
+        _, counts = run_path("cli project", lambda: project_main(
+            pngs + ["--ckpt", ckpt, "--iters", "10", "--segments", "2", "--out", out_dir]))
+        cli_s = time.perf_counter() - t0
+        if counts != {"rasterize_multi": 10 + 2, "rasterize_single": 0}:
+            raise AssertionError(f"cli project: launches {counts}")
+        names = sorted(os.listdir(out_dir))
+        if names != ["fit.npz", "mesh_000.obj", "mesh_001.obj", "render.png", "target.png"]:
+            raise AssertionError(f"cli project wrote {names}")
+        fit = np.load(os.path.join(out_dir, "fit.npz"))
+        hist = fit["loss_history"]
+        if hist.shape != (10,) or not np.isfinite(hist).all():
+            raise AssertionError(f"cli project: loss history {hist}")
+        log(f"cli: project --ckpt (the training phase's step {TRAIN_STEPS}) on 2 PNGs, "
+            f"--iters 10 --segments 2: {cli_s:.1f} s, launches {counts}, loss {hist[0]:.5f} -> "
+            f"{hist[-1]:.5f}, wrote {names}")
+        t0 = time.perf_counter()
+        paths, counts = run_path("cli generate --ckpt", lambda: generate_main([
+            "--with_map", "--size", "256", "--sample", "4", "--pics", "1", "--ckpt", ckpt,
+            "--out", os.path.join(tmp, "gen")]))
+        if counts != {"rasterize_multi": 1, "rasterize_single": 0}:
+            raise AssertionError(f"cli generate --ckpt: launches {counts}")
+        with open(paths[0], "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("cli generate --ckpt wrote no PNG")
+        log(f"cli: generate --with_map --ckpt: {time.perf_counter() - t0:.1f} s, launches "
+            f"{counts}")
+    work.cleanup()
+
     # ---- phase 7: the result ------------------------------------------------
     log(f"launches by path: {json.dumps(path_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     main_paths = ("each", "synth", "train", "downsample_fused=True", "downsample_fused=False",
-                  "render_mean_face")
+                  "render_mean_face") + tuple(
+        f"inversion {m}{'' if f else ' unfused'} B={b}" for m, f, b in INV_RUNS)
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

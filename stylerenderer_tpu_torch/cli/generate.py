@@ -1,11 +1,13 @@
-"""Generation CLI: sample image grids from a randomly initialized GAR.
+"""Generation CLI: sample image grids from the GAR.
 
 python -m stylerenderer_tpu_torch.cli.generate --with_map --size 256 \\
-    --sample 4 --pics 1 [--truncation 0.7] [--save_normals] [--out DIR] \\
-    [--device cuda|cpu]
+    --sample 4 --pics 1 [--ckpt CKPT_DIR] [--truncation 0.7] \\
+    [--save_normals] [--out DIR] [--device cuda|cpu]
 
 Renders through ``GeneratorWithMap`` conditioned on the synthetic face
-mesh, posed at random. Runs on the card unless ``--device cpu``.
+mesh, posed at random, with the weights of a ``cli.train`` checkpoint
+(``g_ema``, else ``g``) or, without ``--ckpt``, random ones. Runs on the
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ def build_argparser():
     p.add_argument("--pics", type=int, default=1, help="number of grids")
     p.add_argument("--truncation", type=float, default=1.0)
     p.add_argument("--truncation_mean", type=int, default=4096)
+    p.add_argument("--ckpt", type=str, default="",
+                   help="checkpoint directory written by cli.train (newest step)")
     p.add_argument("--with_map", action="store_true",
                    help="use the GAR (GeneratorWithMap) with a mesh condition")
     p.add_argument("--out", type=str, default="sample")
@@ -55,6 +59,10 @@ def main(argv=None):
     gen = GeneratorWithMap(args.size, args.latent, args.n_mlp,
                            channel_multiplier=args.channel_multiplier,
                            seed=args.seed, device=device).eval()
+    if args.ckpt:
+        from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
+
+        load_generator_weights(args.ckpt, gen)
     face, tri = synthetic_face(48, 96, 80, 29, device=device)
 
     trunc_latent = None

@@ -16,8 +16,8 @@
 // single-level binning); scatter every valid triangle's row: corner px,
 // py, z at the top level, 3C corner attributes, the id's bits, padded to 16
 // bytes (sr::row_words). The order within a segment varies from run to run;
-// the result does not, since sr::beats is a total order on (depth, id) and
-// values come from the winner's own row.
+// the result does not, since sr::depth_key is a total order on (depth, id)
+// and values come from the winner's own row.
 //
 // Output, level-major: vals [L][B, s, s, C] f32 (0 on background) and wins
 // [L][B, s, s] i32 (-1 on background).
@@ -51,8 +51,9 @@
 //   - The tile's z-buffer is one 64-bit key per pixel row in shared memory,
 //     taken with atomicMax: the ordered depth above the inverted id
 //     (sr::depth_key), so the max is the oracle's winner (max depth, lowest
-//     id, -0 equal to +0) whatever order the threads run in; depths that
-//     cannot win (-inf, NaN) never enter.
+//     id, -0 equal to +0) whatever order the threads run in; -inf never
+//     enters, and a NaN depth takes a key above all others that blanks its
+//     pixel (background value), as the JAX Pallas kernels do.
 //   - A value pass after one barrier: each pixel's winner is recomputed
 //     from its own row (slots: id -> row, written by the binning) and
 //     interpolated, so values come from exactly one winner.
@@ -216,7 +217,7 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
     const int s = top >> k;
     const size_t pix = (size_t)sr::level_pixels_before(top, k) * B + ((size_t)b * s + Y) * s + X;
     const unsigned long long key = s_key[r];
-    const int id = key ? sr::key_id(key) : -1;
+    const int id = sr::key_winner(key);
     wins[pix] = id;
     if (C > 0) {
       float v[C > 0 ? C : 1];

@@ -210,12 +210,6 @@ SR_HD float interp(const float co[3], float a0, float a1, float a2) {
   return co[0] * a0 + co[1] * a1 + co[2] * a2;  // FMA trap
 }
 
-// Max depth wins, the lowest id breaks ties; a depth of -inf never wins
-// (the dense oracle starts its z-buffer at -inf with a strict compare).
-SR_HD bool beats(float depth, int id, float best, int best_id) {
-  return depth > best || (depth == best && id < best_id && depth > -INFINITY);
-}
-
 // Pixel rows of one tile: the dense levels (tile >> k)^2 rows each, then one
 // row per sparse level (a level whose pixels are larger than a tile).
 SR_HD int tile_rows(int tile, int n_levels) {
@@ -350,19 +344,30 @@ SR_HD void level_tile(int w, int h, int tile, int n_levels, int k, int tx, int t
   }
 }
 
+// A covered candidate whose depth is NaN blanks its pixel at that level,
+// whatever the other candidates are: the JAX Pallas kernels' running max
+// turns NaN there for good (rasterize_pallas.py:412-423, :1017-1093). Its
+// key is above every depth key (the highest of those, +inf at id 0, is
+// 0xff800000ffffffff), so atomicMax keeps it, and it decodes to background.
+constexpr unsigned long long kPoisonKey = ~0ull;
+
 // The z-test as one 64-bit integer: a larger key wins. The high word orders
-// the depth (-0 and +0 are one depth, as in beats); the low word is the
-// inverted id, so equal depths go to the lowest id. Only depths that can
-// win (> -inf, not NaN) get a key, and every such key is above 0, which
-// marks background.
+// the depth (-0 and +0 are one depth); the low word is the inverted id, so
+// equal depths go to the lowest id. A NaN depth gets kPoisonKey. Only
+// depths that can win or poison (not -inf) get a key, and every such key
+// is above 0, which marks background.
 SR_HD unsigned long long depth_key(float depth, int id) {
+  if (depth != depth) return kPoisonKey;
   const float d = depth == 0.0f ? 0.0f : depth;
   unsigned u = (unsigned)f2i(d);
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)id);
 }
 
-SR_HD int key_id(unsigned long long key) { return (int)(0xffffffffu - (unsigned)key); }
+// A pixel's key -> its winner, -1 for background (no key, or poisoned).
+SR_HD int key_winner(unsigned long long key) {
+  return key == 0ull || key == kPoisonKey ? -1 : (int)(0xffffffffu - (unsigned)key);
+}
 
 // Candidate t (its raw row) at level k of a w x h image against the tile's
 // pixels there: the level corners p, the clamped bbox in S, and that bbox
@@ -384,13 +389,14 @@ SR_HD bool level_clip(const float* t, int k, int w, int h, const LevelTile& T, f
 }
 
 // The exact test (level_pixel) of a set-up candidate with depths z at pixel
-// (x, y) of the tile: a covered pixel with a depth that can win gets
-// emit(tile row, depth_key).
+// (x, y) of the tile: a covered pixel with a depth that can win, or a NaN
+// depth, gets emit(tile row, depth_key); -inf never enters (the dense
+// oracle starts its z-buffer at -inf with a strict compare).
 template <class Emit>
 SR_HD void test_pixel(const LevelSetup& S, const float* z, int id, int x, int y,
                       const LevelTile& T, bool perspective, float eps, Emit&& emit) {
   float depth, co[3];
-  if (level_pixel(S, z, (float)x, (float)y, perspective, eps, depth, co) && depth > -INFINITY)
+  if (level_pixel(S, z, (float)x, (float)y, perspective, eps, depth, co) && depth != -INFINITY)
     emit(T.off + (y - T.y0) * T.stride + (x - T.x0), depth_key(depth, id));
 }
 

@@ -123,7 +123,7 @@ extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, con
         if (!live) continue;
         const int s = top >> k;
         const long long pix = sr::level_pixels_before(top, k) * B + ((long long)b * s + Y) * s + X;
-        const int id = key[r] ? sr::key_id(key[r]) : -1;
+        const int id = sr::key_winner(key[r]);
         wins[pix] = id;
         float v[7];
         if (id >= 0 && n_attr > 0)

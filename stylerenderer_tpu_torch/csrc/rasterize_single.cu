@@ -56,9 +56,10 @@
 //   - The tile's z-buffer is one 64-bit key per pixel in shared memory,
 //     taken with atomicMax: the ordered depth above the inverted id
 //     (sr::depth_key), so the max is the oracle's winner (max depth, lowest
-//     id, -0 equal to +0) whatever order the threads run in; depths that
-//     cannot win (-inf, NaN) never enter. After one barrier each pixel in
-//     the image gets its key's id, or -1.
+//     id, -0 equal to +0) whatever order the threads run in; -inf never
+//     enters, and a NaN depth takes a key above all others that blanks its
+//     pixel. After one barrier each pixel in the image gets its key's
+//     winner, or -1 (sr::key_winner).
 //   - Rows are 16-byte aligned, read with three 16-byte loads.
 //
 // Bit-exactness: the candidate math (rasterize_multi.cuh) and the binning
@@ -208,7 +209,7 @@ rasterize_single_kernel(const float* __restrict__ rows, const int* __restrict__ 
     const int X = T.x0 + r % tile, Y = T.y0 + r / tile;
     if (X > T.x1 || Y > T.y1) continue;  // an edge tile's pixels outside the image
     const unsigned long long key = s_key[r];
-    wins[((size_t)b * h + Y) * w + X] = key ? sr::key_id(key) : -1;
+    wins[((size_t)b * h + Y) * w + X] = sr::key_winner(key);
   }
 }
 

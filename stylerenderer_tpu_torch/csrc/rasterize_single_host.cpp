@@ -103,7 +103,7 @@ extern "C" int sr_rasterize_single_host(const float* rows, const int* starts, in
       for (int r = 0; r < tile * tile; ++r) {
         const int X = T.x0 + r % tile, Y = T.y0 + r / tile;
         if (X > T.x1 || Y > T.y1) continue;
-        wins[((size_t)b * h + Y) * w + X] = key[r] ? sr::key_id(key[r]) : -1;
+        wins[((size_t)b * h + Y) * w + X] = sr::key_winner(key[r]);
       }
     }
   }

@@ -4,6 +4,7 @@ from stylerenderer_tpu_torch.face3d.geometry import (
     mesh_point_normal,
     normalize,
     random_apply_pose3D,
+    save_obj,
 )
 from stylerenderer_tpu_torch.face3d.io import sphere_face_mesh, synthetic_face
 from stylerenderer_tpu_torch.face3d.morphable import (
@@ -14,6 +15,6 @@ from stylerenderer_tpu_torch.face3d.transforms import euler_mat
 
 __all__ = [
     "LinearMorphableModel", "euler_mat", "make_linear_morphable_model",
-    "mesh_point_normal", "normalize", "random_apply_pose3D",
+    "mesh_point_normal", "normalize", "random_apply_pose3D", "save_obj",
     "sphere_face_mesh", "synthetic_face",
 ]

@@ -1,8 +1,11 @@
-"""Mesh geometry: per-vertex normals and rigid pose augmentation
-(counterpart of ``stylerenderer_tpu/face3d/geometry.py``)."""
+"""Mesh geometry: per-vertex normals, rigid pose augmentation and OBJ
+export (counterpart of ``stylerenderer_tpu/face3d/geometry.py``)."""
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from stylerenderer_tpu_torch.face3d.transforms import euler_mat
@@ -60,3 +63,24 @@ def random_apply_pose3D(generator: torch.Generator | None, v: torch.Tensor,
     vectors)."""
     batch = v.shape[0] if v.ndim >= 3 else 1
     return apply_pose3D(v, pose3D_draws(generator, batch, p))
+
+
+def save_obj(file_name, v, tri=(), vn=()):
+    """Minimal OBJ writer: vertices, optional vertex normals, faces (1-based,
+    ``f i//i`` with normals). Numpy in, the same bytes as the JAX
+    package's writer."""
+    v = np.asarray(v)
+    tri = np.asarray(tri) if len(tri) else np.zeros((0, 3), np.int64)
+    vn = np.asarray(vn) if len(vn) else None
+    with open(file_name, "w") as f:
+        for p in v:
+            f.write("v " + " ".join("%f" % x for x in p) + "\n")
+        if vn is not None:
+            for n in vn:
+                f.write("vn " + " ".join("%f" % x for x in n[:3]) + "\n")
+        for t in tri:
+            if vn is not None:
+                f.write("f " + " ".join("%d//%d" % (i + 1, i + 1) for i in t) + "\n")
+            else:
+                f.write("f " + " ".join("%d" % (i + 1) for i in t) + "\n")
+    return os.path.exists(file_name)

@@ -189,7 +189,12 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
     """Dense winner search: ``[B, H, W]`` int32 triangle index, -1 background.
 
     Every (triangle, pixel) pair is evaluated, triangles in chunks; the test
-    oracle and the plain version of both kernels.
+    oracle and the plain version of both kernels. A pixel that a triangle
+    with a NaN depth covers is background whatever the other triangles are,
+    as in the JAX package's Pallas kernels, whose running max turns NaN
+    there; the answer does not depend on ``chunk``. (The JAX dense oracle
+    only skips the NaN's chunk, so there a triangle of another chunk can
+    still win.)
     """
     v = v.detach().float()
     tri = torch.as_tensor(tri, device=v.device).long()
@@ -204,6 +209,7 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
     Y = ys.float()[None, None, :]
     zbest = torch.full((B, hw), _NEG_INF, device=v.device)
     tbest = torch.full((B, hw), -1, dtype=torch.int32, device=v.device)
+    poisoned = torch.zeros((B, hw), dtype=torch.bool, device=v.device)
     for start in range(0, nf, chunk):
         tc = tri[start:start + chunk]
         T = tc.shape[0]
@@ -215,6 +221,7 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
             px[:, :, None, :], py[:, :, None, :], z[:, :, None, :],
             persp_ok[:, :, None], X, Y, h, w, perspective, eps)
         cov = cov & idx_ok[None, :, None]
+        poisoned |= torch.any(cov & torch.isnan(depth), dim=1)
         zm = torch.where(cov, depth, torch.full_like(depth, _NEG_INF))
         z_c = torch.amax(zm, dim=1)
         # lowest triangle id among the chunk's maxima
@@ -223,6 +230,7 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
         upd = z_c > zbest
         zbest = torch.where(upd, z_c, zbest)
         tbest = torch.where(upd, (i_c + start).to(torch.int32), tbest)
+    tbest = torch.where(poisoned, -1, tbest)
     return tbest.reshape(B, h, w)
 
 

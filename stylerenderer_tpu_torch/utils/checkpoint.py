@@ -109,3 +109,15 @@ def load_params_only(ckpt_dir: str, step: int | None = None):
     ``g`` out for generation) and its TrainConfig."""
     ck = _read(ckpt_dir, step)
     return ck, TrainConfig.from_dict(ck["args"])
+
+
+def load_generator_weights(ckpt_dir: str, gen, step: int | None = None):
+    """Load a checkpoint's ``g_ema`` (else its ``g``) into ``gen`` with
+    ``strict=True``, for generation and inversion; a checkpoint with
+    neither raises ``KeyError``. Returns ``gen``."""
+    ck, _ = load_params_only(ckpt_dir, step)
+    sd = ck.get("g_ema", ck.get("g"))
+    if sd is None:
+        raise KeyError(f"checkpoint under {ckpt_dir} has neither g_ema nor g")
+    gen.load_state_dict(sd, strict=True)
+    return gen

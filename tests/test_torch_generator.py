@@ -366,7 +366,8 @@ def test_port_imports_without_jax():
     assert {f"stylerenderer_tpu_torch.{m}" for m in (
         "utils.config", "models.discriminator", "train.losses", "train.state", "train.step",
         "face3d.augment", "utils.guards", "data.dataset", "utils.checkpoint",
-        "utils.logging", "cli.train")} <= set(mods)
+        "utils.logging", "cli.train", "inversion", "inversion.project",
+        "cli.project")} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert not any(k == 'stylerenderer_tpu' or k.startswith('stylerenderer_tpu.')"

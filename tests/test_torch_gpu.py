@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_meshes import KERNEL_CASES, SINGLE_CASES, kernel_case, keys_of_bins, single_case
+from torch_meshes import (
+    KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins, single_case,
+)
 
 import stylerenderer_tpu_torch.ops.rasterize_multi as rasterize_multi_mod
 import stylerenderer_tpu_torch.ops.rasterize_single as rasterize_single_mod
@@ -312,3 +314,110 @@ def test_cuda_discriminator_r1_finite_at_256(cuda):
                                 materialize_grads=True)
     assert torch.isfinite(r1) and float(r1.detach()) > 0
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["nan_depth", "nan_depth_chunks"])
+def test_cuda_nan_depth_blanks_pixels(cuda, case):
+    """A covered NaN depth gives -1 and the background value at its pixels
+    in K1 (every level) and K2, as in the plain versions; elsewhere the
+    finite triangle in front wins."""
+    v, tri, attrs, top, n_levels, tile, _ = kernel_case(case)
+    v, tri, attrs = (torch.from_numpy(x).to(cuda) for x in (v, tri, attrs))
+    out = rasterize_winners_multi(v, tri, top, n_levels, attrs=attrs, tile=tile)
+    ref = rasterize_winners_multi_ref(v, tri, top, n_levels, attrs=attrs, tile=tile)
+    for (a, wa), (b, wb) in zip(out, ref):
+        assert torch.equal(wa, wb) and torch.equal(a, b)
+    win2 = rasterize_winners_single(v, tri, top, top)
+    assert torch.equal(win2, rasterize_winners_single_ref(v, tri, top, top))
+    idx = tuple(torch.tensor(NAN_DEPTH_PIXELS_16).T)
+    for win, val in ((out[0][1], out[0][0]), (win2, None)):
+        assert (win[idx] == -1).all()
+        assert (win >= 0).sum() > 100
+        if val is not None:
+            assert (val[idx] == 0).all()
+
+
+def _projector_inputs(device):
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+
+    gen = GeneratorWithMap(16, 32, 2, channel_multiplier=1, device="cpu", seed=4)
+    with torch.no_grad():
+        for i, p in enumerate(gen.parameters()):
+            p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(i)) * 0.2)
+    mean_w = gen.mean_latent(4096, torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    p = {"w": mean_w[:, None].repeat(2, gen.n_latent, 1)
+         + torch.from_numpy(rs.randn(2, gen.n_latent, 32).astype(np.float32)) * 0.1}
+    for k, n in (("x", 6), ("rvec", 3), ("tvec", 3), ("log_scale", 1)):
+        p[k] = torch.from_numpy(rs.randn(2, n).astype(np.float32)) * 0.1
+    target = torch.from_numpy(rs.uniform(-1, 1, (2, 3, 16, 16)).astype(np.float32))
+    lmk = torch.from_numpy(rs.uniform(0, 16, (2, 4, 2)).astype(np.float32))
+    return gen.to(device), mean_w.to(device), p, target.to(device), lmk.to(device)
+
+
+@pytest.mark.gpu
+def test_cuda_projector_step_matches_cpu(cuda):
+    """One projector step at the small size, every loss term on and the
+    geometry clip triggering, on the card and on the CPU from the same
+    parameters, TF32 off: the loss to 1e-5 relative, each variable's
+    gradient (the first moment of an Adam started at zero, over 1 - b1) to
+    1e-4 of its largest magnitude. K1 launches twice: the step and the
+    final render."""
+    from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
+
+    cfg = ProjectorConfig(iters=1, w_pixel_l1=0.5, w_lpips=0.3, w_lmk=1e-2, w_prior=1e-3,
+                          w_pose=0.1, w_reg_w=0.2, geo_grad_clip=1e-3)
+    res = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            gen, mean_w, p, target, lmk = _projector_inputs(dev)
+            face, tri = synthetic_face(8, 16, 4, 2, device=dev)
+            project = make_projector(gen, face, tri, cfg, lmk_vidx=[0, 5, 17, 33],
+                                     lpips_fn=lambda a, b: (a - b).abs().mean(dim=(1, 2, 3)))
+            # an Adam state at zero: resumed, Adam takes its first step
+            zopt = project(0, target, lmk, n_steps=1, return_state=True)["state"][1]
+            for st in zopt["state"].values():
+                for v in st.values():
+                    v.zero_()
+            before = rasterize_winners_multi.launches
+            out = project(0, target, lmk, state=(p, zopt), n_steps=1, return_state=True,
+                          mean_latent=mean_w)
+            launched = rasterize_winners_multi.launches - before
+            st = out["state"][1]["state"]
+            res[str(dev)] = (float(out["loss_history"][0]), launched,
+                             [st[i]["exp_avg"].cpu() / 0.1 for i in range(5)])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l_cpu, n_cpu, g_cpu), (l_card, n_card, g_card) = res["cpu"], res["cuda"]
+    assert (n_cpu, n_card) == (0, 2)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-4 * scale, i
+    geo = torch.sqrt(sum((g.double() ** 2).sum() for g in g_card[1:]))
+    np.testing.assert_allclose(float(geo), 1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_cli_project(cuda, tmp_path):
+    """``cli.project`` on the card at a small size: its outputs, a finite
+    and falling loss, and K1 launched once per step and once for the final
+    render of each of its two segments."""
+    from PIL import Image
+
+    from stylerenderer_tpu_torch.cli import project as cli
+
+    photo = str(tmp_path / "a.png")
+    Image.fromarray((np.random.RandomState(4).rand(24, 24, 3) * 255).astype(np.uint8)).save(photo)
+    before = rasterize_winners_multi.launches
+    cli.main([photo, "--size", "16", "--latent", "32", "--n_mlp", "2",
+              "--channel_multiplier", "1", "--iters", "4", "--segments", "2",
+              "--out", str(tmp_path / "out")])
+    assert rasterize_winners_multi.launches - before == 4 + 2
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "fit.npz", "mesh_000.obj", "render.png", "target.png"]
+    hist = np.load(tmp_path / "out" / "fit.npz")["loss_history"]
+    assert hist.shape == (4,) and np.isfinite(hist).all() and hist[-1] < hist[0]

@@ -43,10 +43,12 @@ from stylerenderer_tpu_torch.ops.rasterize import (
 )
 from torch_meshes import (
     KERNEL_CASES,
+    NAN_DEPTH_PIXELS_16,
     kernel_case,
     keys_of_bins,
     mesh_big_triangles,
     mesh_degenerate,
+    mesh_nan_depth,
     mesh_random,
 )
 
@@ -429,3 +431,89 @@ def test_host_kernel_math_bitexact(host_build, case, with_attrs):
         else:
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"win {k}")
     assert (ref[0][1] if with_attrs else ref[0]).max() >= 0
+
+
+# ---- NaN depths --------------------------------------------------------------
+
+def _jax_k2_interpret(monkeypatch, v, tri, h):
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(jrp.pl, "pallas_call",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    return np.asarray(jrp.rasterize_winners_pallas(jnp.asarray(v), jnp.asarray(tri), h, h))
+
+
+@pytest.mark.parametrize("case,nan_id,winner", [("nan_depth", 1, 2),
+                                                ("nan_depth_chunks", 2, 0)])
+def test_nan_depth_six_backends(host_build, monkeypatch, case, nan_id, winner):
+    """A covered NaN depth blanks its pixel at that level: -1 and the
+    background value, in the JAX Pallas kernels (K2, and K1 at every level,
+    interpret mode), the port's dense oracle at any chunk, its plain K1,
+    and the host builds of K1 and K2; elsewhere the finite triangle in
+    front wins. The JAX dense oracle agrees while the NaN shares a chunk
+    with every triangle, but at ``chunk=2`` on the two-chunk mesh it skips
+    only the NaN's chunk, so the winner in front keeps those pixels: a
+    caveat of the reference, recorded here as it is."""
+    from stylerenderer_tpu_torch.ops.rasterize_single import rasterize_winners_single_host
+
+    v, tri, attrs, top, n_levels, tile, _ = kernel_case(case)
+    big = rasterize_winners(_t(v), _t(tri[[winner]]), 16, 16).numpy() >= 0
+    front = np.where(big, winner, -1).astype(np.int32)
+    expect = front.copy()
+    expect[tuple(np.asarray(NAN_DEPTH_PIXELS_16).T)] = -1
+    assert (front[expect == -1] == winner).sum() == len(NAN_DEPTH_PIXELS_16)
+
+    np.testing.assert_array_equal(
+        np.asarray(j_rasterize_winners(jnp.asarray(v), jnp.asarray(tri), 16, 16)), expect)
+    np.testing.assert_array_equal(
+        np.asarray(j_rasterize_winners(jnp.asarray(v), jnp.asarray(tri), 16, 16, chunk=2)),
+        front if case == "nan_depth_chunks" else np.where(expect == -1, front, expect))
+    np.testing.assert_array_equal(_jax_k2_interpret(monkeypatch, v, tri, 16), expect)
+    for chunk in (1, 2, None):
+        np.testing.assert_array_equal(
+            rasterize_winners(_t(v), _t(tri), 16, 16, chunk=chunk).numpy(), expect)
+    np.testing.assert_array_equal(
+        rasterize_winners_single_host(_t(v), _t(tri), 16, 16, tile=8).numpy(), expect)
+
+    jk1 = _jax_multi(v, tri, top, n_levels, False, attrs, tile)
+    ref = rasterize_winners_multi_ref(_t(v), _t(tri), top, n_levels, attrs=_t(attrs),
+                                      tile=tile)
+    host = rasterize_winners_multi_host(_t(v), _t(tri), top, n_levels, attrs=_t(attrs),
+                                        tile=tile)
+    for k, ((jv, jw), (rv, rw), (hv, hw)) in enumerate(zip(jk1, ref, host)):
+        s = top >> k
+        if k == 0:
+            np.testing.assert_array_equal(rw.numpy(), expect)
+        plain = rasterize_winners(_t(v), _t(tri), s, s).numpy()
+        np.testing.assert_array_equal(rw.numpy(), plain, err_msg=f"level {k}")
+        np.testing.assert_array_equal(np.asarray(jw), plain, err_msg=f"level {k}")
+        np.testing.assert_array_equal(hw.numpy(), plain, err_msg=f"level {k}")
+        np.testing.assert_array_equal(hv.numpy(), rv.numpy(), err_msg=f"level {k}")
+        assert (rv.numpy()[plain == -1] == 0).all()
+        np.testing.assert_allclose(rv.numpy(), np.asarray(jv), rtol=0, atol=1e-6)
+    assert (ref[1][1].numpy() == -1).sum() > (rasterize_winners(
+        _t(v), _t(tri[[winner]]), 8, 8).numpy() == -1).sum()  # blanked at 8 px too
+
+
+def test_nan_depth_gradients():
+    """A pixel that a NaN depth blanks passes no gradient to the vertices or
+    the attributes, in the dense ``rasterize`` and the fused pyramid, and
+    the gradients of the whole map stay finite."""
+    v, tri = mesh_nan_depth()
+    tex = np.random.RandomState(3).randn(*v.shape).astype(np.float32)
+    b, y, x = NAN_DEPTH_PIXELS_16[0]
+    for fn in (lambda vt, tt: rasterize(vt, tt, _t(tri), 16, 16),
+               lambda vt, tt: rasterize_pyramid_fused(vt, tt, _t(tri), [16, 8, 4])[0]):
+        for pixel_only in (True, False):
+            vt = _t(v).requires_grad_(True)
+            tt = _t(tex).requires_grad_(True)
+            out = fn(vt, tt)
+            assert (out[b, y, x] == 0).all()
+            (out[b, y, x].sum() if pixel_only else out.sum()).backward()
+            gv, gt = vt.grad.numpy(), tt.grad.numpy()
+            if pixel_only:
+                assert (gv == 0).all() and (gt == 0).all()
+            else:
+                assert np.isfinite(gv).all() and np.isfinite(gt).all()
+                assert np.abs(gt).max() > 0 and (gv[:, 3:6] == 0).all()

@@ -111,9 +111,10 @@ def mesh_ties_nan():
     at z = +0.0 (id 0) inside two copies of a big one at z = -0.0 (id 1)
     and +0.0 (id 2): all three tie, so id 0 wins inside the small one and
     id 1 elsewhere (a z-test that put -0.0 below +0.0 would give id 2);
-    then a triangle in front with a NaN x (id 3), which is invalid. (A NaN
-    depth is left out: the dense oracle takes the max over a chunk of
-    triangles, so a NaN there hides the other triangles of its chunk.)"""
+    then a triangle in front with a NaN x (id 3), which is invalid: coverage
+    depends only on x and y, so a NaN x or y covers nothing. (A NaN depth
+    with finite x and y covers, and blanks the pixels it covers at that
+    level: ``mesh_nan_depth``.)"""
     big = [[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]]
     v = [[0.1, 0.1, 0.0], [0.3, 0.1, 0.0], [0.2, 0.3, 0.0]]
     for z in (-0.0, 0.0):
@@ -123,6 +124,43 @@ def mesh_ties_nan():
     v = np.stack([v, v + np.asarray([0.05, -0.03, 0.0], np.float32)])
     tri = np.arange(len(v[0]), dtype=np.int32).reshape(-1, 3)
     return v, tri
+
+
+_BIG = [[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]]
+_SMALL = [[0.0, 0.0], [0.4, 0.0], [0.2, 0.4]]
+
+
+def mesh_nan_depth():
+    """The contract for a NaN depth: a big triangle at z = 0 (id 0), a
+    small one with finite x and y at z = NaN (id 1) and the big one again
+    at z = 0.5 in front (id 2). Where the small one covers a pixel, that
+    pixel is background (-1, background values), whatever the other
+    triangles are, as in the JAX Pallas kernels; elsewhere id 2 wins. The
+    second batch item is shifted."""
+    v = [[x, y, 0.0] for x, y in _BIG] + [[x, y, np.nan] for x, y in _SMALL]
+    v += [[x, y, 0.5] for x, y in _BIG]
+    v = np.asarray(v, np.float32)
+    v = np.stack([v, v + np.asarray([0.05, -0.03, 0.0], np.float32)])
+    return v, np.arange(9, dtype=np.int32).reshape(3, 3)
+
+
+# (batch item, y, x) of the 16 px pixels that the NaN-depth triangle of
+# mesh_nan_depth (and of mesh_nan_depth_chunks) covers
+NAN_DEPTH_PIXELS_16 = [(0, 5, 9), (0, 6, 9), (0, 7, 8), (0, 7, 9), (0, 7, 10),
+                       (1, 6, 9), (1, 6, 10), (1, 7, 9), (1, 7, 10)]
+
+
+def mesh_nan_depth_chunks():
+    """``mesh_nan_depth`` over two chunks of two triangles: the finite
+    winner (the big triangle at z = 0.5, id 0) and the big one at z = 0
+    (id 1) come first, the NaN-depth triangle (id 2) after them. The port
+    and the JAX Pallas kernels blank the NaN's pixels; the JAX dense oracle
+    at ``chunk=2`` skips only the NaN's chunk, so id 0 keeps them there."""
+    v = [[x, y, 0.5] for x, y in _BIG] + [[x, y, 0.0] for x, y in _BIG]
+    v += [[x, y, np.nan] for x, y in _SMALL]
+    v = np.asarray(v, np.float32)
+    v = np.stack([v, v + np.asarray([0.05, -0.03, 0.0], np.float32)])
+    return v, np.arange(9, dtype=np.int32).reshape(3, 3)
 
 
 def _pixel_mesh(m, z, h, w):
@@ -190,8 +228,9 @@ def mesh_big_single(seed=0, B=2, h=96, w=64):
 # from the tile-16 main-path layout with its sparse coarse levels to tiles
 # 8 and 32, perspective, degenerate triangles, the XL tier and corners on
 # the pixel lattice of the coarse levels (bboxes that touch tile edges),
-# depth ties between -0.0 and +0.0, a NaN vertex, and thousands of
-# triangles in one tile (the kernel's coarse-level queue fills)
+# depth ties between -0.0 and +0.0, a NaN vertex, thousands of triangles
+# in one tile (the kernel's coarse-level queue fills), and a NaN depth that
+# blanks the pixels it covers
 KERNEL_CASES = {
     "random": (lambda: mesh_random(False, seed=3, nv=50, nf=160, scale=0.6), 32, 6, 16, False),
     "random_persp": (lambda: mesh_random(True, seed=3, nv=50, nf=160, scale=0.6), 32, 5, 16,
@@ -207,6 +246,8 @@ KERNEL_CASES = {
     "lattice": (mesh_lattice, 64, 7, 16, False),
     "ties_nan": (mesh_ties_nan, 32, 4, 16, False),
     "dense_tile": (mesh_dense_tile, 64, 7, 16, False),
+    "nan_depth": (mesh_nan_depth, 16, 3, 16, False),
+    "nan_depth_chunks": (mesh_nan_depth_chunks, 16, 3, 16, False),
 }
 
 
@@ -239,7 +280,7 @@ def keys_of_bins(ids, starts):
 # NaN vertex, thousands of triangles over one tile (many rounds of the
 # kernel's block), and big triangles at tile 32 (clips of up to 1,024 px,
 # XL; a 96 px image has at most 3 tiles of 32 px, so the span-16 tier shows
-# at the 8 px tiles the card tests also run).
+# at the 8 px tiles the card tests also run), and a NaN depth.
 SINGLE_CASES = {
     "random": (lambda: mesh_random(False), 24, 24, 8, False),
     "random_persp": (lambda: mesh_random(True), 24, 24, 8, True),
@@ -259,6 +300,8 @@ SINGLE_CASES = {
     "ties_nan": (mesh_ties_nan, 24, 24, 8, False),
     "dense_tile": (lambda: mesh_dense_tile(nf=3000), 64, 64, 16, False),
     "big_triangles_96x64_tile32": (mesh_big_single, 96, 64, 32, False),
+    "nan_depth": (mesh_nan_depth, 16, 16, 8, False),
+    "nan_depth_chunks": (mesh_nan_depth_chunks, 16, 16, 8, False),
 }
 
 
