@@ -28,6 +28,14 @@ entry points a user calls, and prints what it measured:
   fused pyramid), ``downsample`` fused (K1 at one level) and unfused (K2)
   at B=8, each timed, counted, profiled and held to a finite, falling
   loss; K1 bit for bit on the fitted vertices;
+- evaluation on the training phase's checkpoint (phase 4f): ``cli.
+  calc_inception`` on the writer's shard, ``cli.fid --with_map`` (K1 once a
+  batch, bit for bit on a batch's mesh) and ``cli.ppl --with_map`` (K1
+  twice a batch), the LPIPS projector (``w_lpips=0.8``, ``each`` B=8, K1
+  every step), the unconditioned ``Generator(256, 512, 8)`` at B=16 and
+  ``cli.generate`` without ``--with_map``, each timed, with LPIPS' share of
+  the projector's device time; the FID network, LPIPS and the Generator
+  against the CPU at a small size (phase 5);
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -78,6 +86,11 @@ INV_ITERS = 20     # Adam steps of each timed fit
 INV_RUNS = (("each", True, 8), ("each", True, 16), ("downsample", True, 8),
             ("downsample", False, 8))
 INV_LANDMARKS = 68
+# phase 4f: cli.fid's samples and batch, cli.ppl's pairs and batch, the
+# LPIPS projector's batch and steps, the Generator's timed forwards
+FID_SAMPLES, FID_BATCH, PPL_SAMPLES, PPL_BATCH = 128, 32, 64, 16
+LPIPS_INV_BATCH = 8
+GEN_FORWARDS = 10
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -564,7 +577,8 @@ def inversion_phase(torch, np, dev, face, tri, run_path, check_fitted):
     events), counted, profiled (a 1-step and a 2-step call; their difference
     is one step), and held to finite,
     falling losses; ``check_fitted`` takes the B=16 ``each`` fit's
-    vertices. Returns two target images ``[2, 256, 256, 3]`` in [-1, 1]."""
+    vertices. Returns the targets ``[16, 3, 256, 256]`` in [-1, 1], their
+    landmarks and the landmark vertex ids."""
     from stylerenderer_tpu_torch.face3d import mesh_point_normal
     from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
     from stylerenderer_tpu_torch.inversion.project import _apply_pose
@@ -655,7 +669,196 @@ def inversion_phase(torch, np, dev, face, tri, run_path, check_fitted):
         if (mode, b) == ("each", B):
             check_fitted(out["vertices"])
         del out
-    return target[:2].permute(0, 2, 3, 1).cpu().numpy()
+    return target, target_lmk, lmk_vidx
+
+
+def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets, run_path,
+               check_k1):
+    """Evaluation on the training checkpoint ``ckpt``: ``cli.calc_inception``
+    on ``shard``, ``cli.fid --with_map`` (K1 once a batch; ``check_k1``
+    takes its first batch's mesh), ``cli.ppl --with_map`` (K1 twice a
+    batch), the LPIPS projector on the inversion ``targets`` (K1 every
+    step), the unconditioned Generator and ``cli.generate`` without
+    ``--with_map``: each counted, checked and timed."""
+    from stylerenderer_tpu_torch.cli.calc_inception import main as calc_main
+    from stylerenderer_tpu_torch.cli.fid import main as fid_main, make_sampler
+    from stylerenderer_tpu_torch.cli.generate import main as generate_main
+    from stylerenderer_tpu_torch.cli.ppl import main as ppl_main
+    from stylerenderer_tpu_torch.cli.ppl import make_sampler as make_ppl_sampler
+    from stylerenderer_tpu_torch.eval import (
+        extract_features_from_samples, load_lpips, load_patched_inception_v3, load_stats,
+    )
+    from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
+    from stylerenderer_tpu_torch.models import Generator, GeneratorWithMap
+    from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
+
+    none = {"rasterize_multi": 0, "rasterize_single": 0}
+    t_phase = time.perf_counter()
+    # 1. the real statistics of the writer's shard
+    stats = os.path.join(os.path.dirname(shard), "inception_faces256.pkl")
+    t0 = time.perf_counter()
+    out, counts = run_path("eval calc_inception",
+                           lambda: calc_main([shard, "--size", "256", "--out", stats]))
+    calc_s = time.perf_counter() - t0
+    mu, cov = load_stats(stats)
+    if (out != stats or counts != none or mu.shape != (2048,) or cov.shape != (2048, 2048)
+            or not (np.isfinite(mu).all() and np.isfinite(cov).all())):
+        raise AssertionError(f"cli calc_inception: {out}, launches {counts}, stats "
+                             f"{mu.shape} {cov.shape}")
+    log(f"eval: cli.calc_inception on the synth shard ({SYNTH_IMAGES} images, 256 px): "
+        f"{calc_s:.1f} s host clock (set-up included), launches {counts}")
+
+    # 2. cli.fid: the meshes its batches render are recorded on the way
+    seen = []
+    pyramid = GeneratorWithMap.normal_pyramid
+
+    def recording(self, mesh):
+        seen.append(mesh)
+        return pyramid(self, mesh)
+
+    GeneratorWithMap.normal_pyramid = recording
+    try:
+        t0 = time.perf_counter()
+        fid, counts = run_path("eval fid", lambda: fid_main([
+            "--with_map", "--ckpt", ckpt, "--inception", stats, "--size", "256",
+            "--n_sample", str(FID_SAMPLES), "--batch", str(FID_BATCH)]))
+        fid_s = time.perf_counter() - t0
+    finally:
+        GeneratorWithMap.normal_pyramid = pyramid
+    n_batches = FID_SAMPLES // FID_BATCH
+    if counts != {"rasterize_multi": n_batches, "rasterize_single": 0}:
+        raise AssertionError(f"cli fid: launches {counts}, expected {n_batches} of K1")
+    if not (np.isfinite(fid) and fid > 0) or len(seen) != n_batches:
+        raise AssertionError(f"cli fid: {fid}, {len(seen)} batches rendered")
+    vert, norm, _ = seen[0]
+    check_k1(vert, norm, f"the cli.fid first batch's posed mesh (B={FID_BATCH})")
+    del seen
+    log(f"eval: cli.fid --with_map --ckpt, {FID_SAMPLES} samples, B={FID_BATCH}: fid "
+        f"{fid:.4f} (random-feature Inception), {fid_s:.1f} s host clock (set-up and the "
+        f"2048-d sqrtm included), launches {counts}; {smi}")
+    # FID sampling alone: the CLI's sampler and network on the checkpoint
+    gen = GeneratorWithMap(256, 512, 8, channel_multiplier=2, seed=0, device=dev).eval()
+    load_generator_weights(ckpt, gen)
+    inception = load_patched_inception_v3(device=dev)
+    sample = make_sampler(gen, synth_mesh, torch.Generator(device=dev).manual_seed(1))
+    rng = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        imgs = sample(rng, FID_BATCH)
+        gar_ms = cuda_ms(torch, lambda: sample(rng, FID_BATCH), 5)
+        inc_ms = cuda_ms(torch, lambda: inception(imgs), 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = extract_features_from_samples(sample, inception, FID_SAMPLES, FID_BATCH, rng)
+    torch.cuda.synchronize()
+    fid_rate = FID_SAMPLES / (time.perf_counter() - t0)
+    fid_peak = torch.cuda.max_memory_allocated()
+    if feats.shape != (FID_SAMPLES, 2048) or not np.isfinite(feats).all():
+        raise AssertionError(f"fid sampling: features {feats.shape}")
+    log(f"eval: FID sampling, GAR f32 (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}) + "
+        f"InceptionV3, B={FID_BATCH}: {fid_rate:.1f} images/s (host clock, {FID_SAMPLES} "
+        f"images); per batch (CUDA events): sampler (z, posed mesh, GAR forward) "
+        f"{gar_ms:.3f} ms, Inception (resize to 299 included) {inc_ms:.3f} ms; peak memory "
+        f"{fid_peak / 2 ** 30:.2f} GiB; {smi}")
+    del imgs, inception, sample
+
+    # 3. cli.ppl
+    t0 = time.perf_counter()
+    ppl, counts = run_path("eval ppl", lambda: ppl_main([
+        "--with_map", "--ckpt", ckpt, "--size", "256", "--n_sample", str(PPL_SAMPLES),
+        "--batch", str(PPL_BATCH)]))
+    ppl_s = time.perf_counter() - t0
+    want = {"rasterize_multi": 2 * PPL_SAMPLES // PPL_BATCH, "rasterize_single": 0}
+    if counts != want or not np.isfinite(ppl):
+        raise AssertionError(f"cli ppl: {ppl}, launches {counts}, expected {want}")
+    log(f"eval: cli.ppl --with_map --ckpt, {PPL_SAMPLES} pairs, B={PPL_BATCH}: ppl {ppl:.4f} "
+        f"(random-feature LPIPS), {ppl_s:.1f} s host clock (set-up included), launches "
+        f"{counts}")
+    # PPL sampling alone, with the CLI's sampler on the checkpoint
+    lpips = load_lpips("vgg", device=dev)
+    sampler = make_ppl_sampler(gen, lpips, PPL_BATCH, synth_mesh)
+    g = torch.Generator().manual_seed(3)
+    sampler(g, PPL_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = torch.cat([sampler(g, PPL_BATCH) for _ in range(PPL_SAMPLES // PPL_BATCH)])
+    torch.cuda.synchronize()
+    ppl_rate = PPL_SAMPLES / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(d).all()):
+        raise AssertionError("ppl sampling: non-finite distances")
+    log(f"eval: PPL sampling (space w, eps 1e-4, two GAR forwards and LPIPS VGG16 a batch), "
+        f"B={PPL_BATCH}: {ppl_rate:.1f} pairs/s (host clock, {PPL_SAMPLES} pairs); {smi}")
+    del gen
+
+    # 4. the LPIPS projector: the paper's inversion loss, each B=8
+    target, target_lmk, lmk_vidx = targets
+    target, target_lmk = target[:LPIPS_INV_BATCH], target_lmk[:LPIPS_INV_BATCH]
+    gen = GeneratorWithMap(256, 512, 8, channel_multiplier=2, seed=0, device=dev)
+    projects = {w: make_projector(gen, face, tri, ProjectorConfig(iters=INV_ITERS, w_lpips=w),
+                                  lpips_fn=lpips, lmk_vidx=lmk_vidx) for w in (0.8, 0.0)}
+    project = projects[0.8]
+    project(0, target, target_lmk, n_steps=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    name = f"eval lpips inversion each B={LPIPS_INV_BATCH}"
+    t0 = time.perf_counter()
+    out, counts = run_path(name, lambda: project(0, target, target_lmk, return_state=True))
+    inv_ms = (time.perf_counter() - t0) * 1e3 / INV_ITERS
+    inv_peak = torch.cuda.max_memory_allocated()
+    want = {"rasterize_multi": INV_ITERS + 1, "rasterize_single": 0}
+    hist = out["loss_history"].cpu().numpy()
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    if (hist.shape != (INV_ITERS,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]
+            or "lpips" not in out["losses"] or not float(out["losses"]["lpips"]) > 0):
+        raise AssertionError(f"{name}: loss history {hist}, terms {list(out['losses'])}")
+    # one step's device time with and without the LPIPS term (profiled 2-step
+    # minus 1-step calls from the same state): their difference is LPIPS'
+    busy = {}
+    for w, proj in projects.items():
+        prof = [profile_step(torch, lambda n=n: proj(0, target, target_lmk, state=out["state"],
+                                                      n_steps=n)) for n in (1, 2)]
+        busy[w] = prof[1]["busy_ms"] - prof[0]["busy_ms"]
+    img = out["render"].detach().requires_grad_(True)
+    lp_ms = cuda_ms(torch, lambda: torch.autograd.grad(lpips(img, target).sum(), img), 5)
+    share = (busy[0.8] - busy[0.0]) / busy[0.8]
+    log(f"eval: {name}, ProjectorConfig(iters={INV_ITERS}, w_lpips=0.8), f32: "
+        f"{inv_ms:.1f} ms per step (host clock over the fit, init and final render "
+        f"included); launches {counts}; peak memory {inv_peak / 2 ** 30:.2f} GiB; loss "
+        f"{hist[0]:.5f} -> {hist[-1]:.5f}; final terms "
+        + ", ".join(f"{k} {float(v):.5f}" for k, v in out["losses"].items()) + "; " + smi)
+    log(f"  one step's device busy (profiled 2-step minus 1-step call): {busy[0.8]:.1f} ms with "
+        f"LPIPS, {busy[0.0]:.1f} ms without: LPIPS' share {share:.3f}; LPIPS VGG16 forward "
+        f"and backward alone at B={LPIPS_INV_BATCH}, 256 px (CUDA events): {lp_ms:.3f} ms")
+    del out, gen, projects, project, lpips
+
+    # 5. the unconditioned Generator, and cli.generate without --with_map
+    gen = Generator(256, 512, 8, channel_multiplier=2, seed=0, device=dev).eval()
+    zs = [torch.randn(BATCH, 512, generator=g).to(dev) for _ in range(GEN_FORWARDS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        gen([zs[0]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, counts = run_path("eval generator", lambda: [gen([z])[0] for z in zs[1:]])
+        gen_rate = BATCH * GEN_FORWARDS / (time.perf_counter() - t0)
+        fwd_ms = cuda_ms(torch, lambda: gen([zs[0]]), 5)
+    gen_peak = torch.cuda.max_memory_allocated()
+    if counts != none or any(tuple(i.shape) != (BATCH, 3, 256, 256)
+                             or not bool(torch.isfinite(i).all()) for i in images):
+        raise AssertionError(f"generator: launches {counts} or bad images")
+    del images, gen
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, counts = run_path("eval cli generate", lambda: generate_main([
+            "--size", "256", "--sample", "4", "--pics", "1", "--out", tmp]))
+        with open(paths[0], "rb") as f:
+            if counts != none or f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"cli generate without --with_map: launches {counts}")
+    log(f"eval: Generator(256, 512, 8, channel_multiplier=2) f32, B={BATCH}: {gen_rate:.1f} "
+        f"renders/s (host clock, {GEN_FORWARDS} forwards), {fwd_ms:.3f} ms a forward (CUDA "
+        f"events), peak memory {gen_peak / 2 ** 30:.2f} GiB; cli.generate without --with_map "
+        f"wrote a PNG; {smi}")
+    log(f"eval phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -710,7 +913,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    # the training phase's checkpoint outlives its shard: phase 6 reads it
+    # the training phase's checkpoint and its shard: phases 4f and 6 read them
     work = tempfile.TemporaryDirectory()
 
     # ---- phase 1: the card ------------------------------------------------
@@ -871,7 +1074,7 @@ def main() -> int:
 
     # ---- phase 4a: the synthetic-data path -----------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "faces256.srpack")
+        path = os.path.join(work.name, "faces256.srpack")
         write_synth_dataset(os.path.join(tmp, "warm.srpack"), BATCH, size=256, seed=1,
                             batch=BATCH, device=dev)
         t0 = time.perf_counter()
@@ -1022,19 +1225,28 @@ def main() -> int:
                   "path)", k1_one) + f"; plain version {k1_one_plain_ms:.1f} ms (once)")
 
     # ---- phase 4e: render inverting at full width -----------------------------
-    def check_fitted(v):
-        """K1 on the fitted vertices (B=16), held on 2 samples against its
-        plain version."""
-        n = mesh_point_normal(v, tri)
-        out = rasterize_winners_multi(v, tri, TOP, N_LEVELS, attrs=n)
+    def check_k1_samples(v, n, t, what, k):
+        """K1 at 7 levels with C=3 on the batch ``v``, its first ``k``
+        samples held against the plain version."""
+        out = rasterize_winners_multi(v, t, TOP, N_LEVELS, attrs=n)
         ref, plain_ms = once_ms(torch, lambda: rasterize_winners_multi_ref(
-            v[:2], tri, TOP, N_LEVELS, attrs=n[:2]))
+            v[:k], t, TOP, N_LEVELS, attrs=n[:k]))
         max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
-            [(a[:2], w[:2]) for a, w in out], ref, True, "K1 on the fitted vertices"))
-        log(f"check: K1 on the B={v.shape[0]} each fit's fitted vertices, {N_LEVELS} levels, "
-            f"C=3: samples 0 and 1 bit-equal to the plain version ({plain_ms:.1f} ms once)")
+            [(a[:k], w[:k]) for a, w in out], ref, True, f"K1 on {what}"))
+        log(f"check: K1 on {what}, {N_LEVELS} levels, C=3: samples 0-{k - 1} bit-equal to the "
+            f"plain version ({plain_ms:.1f} ms once)")
 
-    photos = inversion_phase(torch, np, dev, face, tri, run_path, check_fitted)
+    targets = inversion_phase(
+        torch, np, dev, face, tri, run_path, lambda v: check_k1_samples(
+            v, mesh_point_normal(v, tri), tri, f"the B={v.shape[0]} each fit's fitted vertices",
+            2))
+    photos = targets[0][:2].permute(0, 2, 3, 1).cpu().numpy()
+
+    # ---- phase 4f: evaluation on the training checkpoint ----------------------
+    eval_phase(torch, np, dev, smi, os.path.join(work.name, "faces256.srpack"),
+               os.path.join(work.name, "train", "checkpoint"), face, tri,
+               (synth_face, synth_tri), targets, run_path,
+               lambda v, n, what: check_k1_samples(v, n, synth_tri, what, 4))
 
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1052,6 +1264,27 @@ def main() -> int:
             img, _, nm = m([sz.to(d)], (svert.to(d), snorm.to(d), stri.to(d)),
                            noise=[n.to(d) for n in snoise], return_normals=True)
             res[d] = (img.cpu(), [x.cpu() for x in nm])
+    # the evaluation layer at a small size: the unconditioned Generator
+    # (explicit noise), the FID network's pool3 (64 px resized to 299) and
+    # LPIPS VGG16 at 64 px, with its gradient through a flat image
+    from stylerenderer_tpu_torch.eval import load_lpips, load_patched_inception_v3
+    from stylerenderer_tpu_torch.models import Generator
+
+    ge = torch.Generator().manual_seed(6)
+    ez = torch.randn(2, 32, generator=ge)
+    enoise = make_noise(16, 2, ge)
+    ex = torch.rand(2, 3, 64, 64, generator=ge) * 2 - 1
+    ey = torch.rand(2, 3, 64, 64, generator=ge) * 2 - 1
+    for d in ("cpu", "cuda"):
+        with torch.no_grad():
+            eg = Generator(16, 32, 2, channel_multiplier=1, seed=3, device=d).eval()
+            res[f"generator {d}"] = eg([ez.to(d)], noise=[n.to(d) for n in enoise])[0].cpu()
+            res[f"inception {d}"] = load_patched_inception_v3(device=d)(ex.to(d)).cpu()
+        lp = load_lpips("vgg", device=d)
+        flat = torch.full_like(ex, -0.6, device=d).requires_grad_(True)
+        dist = lp(flat, ey.to(d))
+        res[f"lpips {d}"] = torch.cat([lp(ex.to(d), ey.to(d)).detach(), dist.detach()]).cpu()
+        res[f"lpips grad {d}"] = torch.autograd.grad(dist.sum(), flat)[0].cpu()
     torch.backends.cudnn.allow_tf32 = True
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         if not bool((a == b).all()):
@@ -1060,6 +1293,23 @@ def main() -> int:
     torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-4, atol=1e-4)
     log(f"check: GeneratorWithMap(32, 64, 2) f32 (TF32 off) on the card vs the CPU: normal "
         f"maps equal, image max |diff| {img_err:.3e} (tolerance 1e-4)")
+    err = {k: float((res[f"{k} cuda"] - res[f"{k} cpu"]).abs().max())
+           for k in ("generator", "inception", "lpips", "lpips grad")}
+    scale = {k: float(res[f"{k} cpu"].abs().max()) for k in err}
+    torch.testing.assert_close(res["generator cuda"], res["generator cpu"], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(res["lpips cuda"], res["lpips cpu"], rtol=1e-4, atol=0)
+    if not err["inception"] <= 1e-3 * scale["inception"]:
+        raise AssertionError(f"Inception pool3: card vs CPU {err['inception']:.3e} of "
+                             f"{scale['inception']:.3e}")
+    if not (bool(torch.isfinite(res["lpips grad cuda"]).all())
+            and err["lpips grad"] <= 1e-4 * scale["lpips grad"]):
+        raise AssertionError(f"LPIPS gradient on a flat image: card vs CPU {err['lpips grad']}")
+    log(f"check: (TF32 off, card vs CPU) Generator(16, 32, 2) image max |diff| "
+        f"{err['generator']:.3e} (tolerance 1e-4); InceptionV3 pool3, 64 px resized to 299, "
+        f"max |diff| {err['inception']:.3e} of max |feature| {scale['inception']:.3e} "
+        f"(tolerance 1e-3 of it); LPIPS VGG16 at 64 px max |diff| {err['lpips']:.3e} of "
+        f"{scale['lpips']:.3e} (rtol 1e-4), its gradient through a flat image finite, max "
+        f"|diff| {err['lpips grad']:.3e} of {scale['lpips grad']:.3e} (tolerance 1e-4 of it)")
 
     # ---- phase 6: the generation CLI ------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1122,7 +1372,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     main_paths = ("each", "synth", "train", "downsample_fused=True", "downsample_fused=False",
                   "render_mean_face") + tuple(
-        f"inversion {m}{'' if f else ' unfused'} B={b}" for m, f, b in INV_RUNS)
+        f"inversion {m}{'' if f else ' unfused'} B={b}" for m, f, b in INV_RUNS) + (
+        "eval fid", "eval ppl", f"eval lpips inversion each B={LPIPS_INV_BATCH}")
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

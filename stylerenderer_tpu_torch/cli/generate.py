@@ -1,13 +1,14 @@
-"""Generation CLI: sample image grids from the GAR.
+"""Generation CLI: sample image grids from the generator or the GAR.
 
-python -m stylerenderer_tpu_torch.cli.generate --with_map --size 256 \\
-    --sample 4 --pics 1 [--ckpt CKPT_DIR] [--truncation 0.7] \\
-    [--save_normals] [--out DIR] [--device cuda|cpu]
+python -m stylerenderer_tpu_torch.cli.generate --size 256 --sample 4 \\
+    --pics 1 [--with_map [--save_normals]] [--ckpt CKPT_DIR] \\
+    [--truncation 0.7] [--out DIR] [--device cuda|cpu]
 
-Renders through ``GeneratorWithMap`` conditioned on the synthetic face
-mesh, posed at random, with the weights of a ``cli.train`` checkpoint
-(``g_ema``, else ``g``) or, without ``--ckpt``, random ones. Runs on the
-card unless ``--device cpu``.
+Renders through the unconditioned ``Generator`` or, with ``--with_map``,
+through ``GeneratorWithMap`` conditioned on the synthetic face mesh, posed
+at random, with the weights of a checkpoint (``g_ema``, else ``g``, loaded
+strictly) or, without ``--ckpt``, random ones. Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def build_argparser():
     p.add_argument("--ckpt", type=str, default="",
                    help="checkpoint directory written by cli.train (newest step)")
     p.add_argument("--with_map", action="store_true",
-                   help="use the GAR (GeneratorWithMap) with a mesh condition")
+                   help="render through the GAR (GeneratorWithMap) on a posed mesh, "
+                        "not the unconditioned Generator")
     p.add_argument("--out", type=str, default="sample")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_normals", action="store_true")
@@ -42,28 +44,26 @@ def build_argparser():
 
 @torch.no_grad()
 def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    if not args.with_map:
-        parser.error("only the GAR is ported: pass --with_map")
+    args = build_argparser().parse_args(argv)
     from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.face3d import (
         mesh_point_normal, random_apply_pose3D, synthetic_face,
     )
-    from stylerenderer_tpu_torch.models import GeneratorWithMap
+    from stylerenderer_tpu_torch.models import Generator, GeneratorWithMap
     from stylerenderer_tpu_torch.utils.image import save_image_grid
 
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     rng = torch.Generator().manual_seed(args.seed)
-    gen = GeneratorWithMap(args.size, args.latent, args.n_mlp,
-                           channel_multiplier=args.channel_multiplier,
-                           seed=args.seed, device=device).eval()
+    cls = GeneratorWithMap if args.with_map else Generator
+    gen = cls(args.size, args.latent, args.n_mlp, channel_multiplier=args.channel_multiplier,
+              seed=args.seed, device=device).eval()
     if args.ckpt:
         from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
 
         load_generator_weights(args.ckpt, gen)
-    face, tri = synthetic_face(48, 96, 80, 29, device=device)
+    if args.with_map:
+        face, tri = synthetic_face(48, 96, 80, 29, device=device)
 
     trunc_latent = None
     if args.truncation < 1:
@@ -72,15 +72,17 @@ def main(argv=None):
     paths = []
     for i in range(args.pics):
         z = torch.randn(args.sample, args.latent, generator=rng).to(device)
-        vert = random_apply_pose3D(rng, face(face.random_input(args.sample, rng)))
-        norm = mesh_point_normal(vert, tri)
-        img, _, norms = gen(
-            [z], (vert, norm, tri),
-            truncation=args.truncation if args.truncation < 1 else None,
-            truncation_latent=trunc_latent, return_normals=True, generator=rng)
-        if args.save_normals:
-            save_image_grid(os.path.join(args.out, f"{i:06d}_norm.png"),
-                            norms[-1].float().cpu().numpy())
+        kw = dict(truncation=args.truncation if args.truncation < 1 else None,
+                  truncation_latent=trunc_latent, generator=rng)
+        if args.with_map:
+            vert = random_apply_pose3D(rng, face(face.random_input(args.sample, rng)))
+            norm = mesh_point_normal(vert, tri)
+            img, _, norms = gen([z], (vert, norm, tri), return_normals=True, **kw)
+            if args.save_normals:
+                save_image_grid(os.path.join(args.out, f"{i:06d}_norm.png"),
+                                norms[-1].float().cpu().numpy())
+        else:
+            img, _ = gen([z], **kw)
         img = img.float().permute(0, 2, 3, 1).cpu().numpy()
         if not np.isfinite(img).all():
             raise FloatingPointError("non-finite image")

@@ -9,9 +9,10 @@ Loads aligned photos, fits (w+, 3DMM parameters, pose) on the card (the
 CPU with ``--device cpu``) and writes ``render.png``, ``target.png``,
 ``mesh_{i:03d}.obj`` per photo and ``fit.npz``. The weights are a
 ``cli.train`` checkpoint's (``g_ema``, else ``g``) or, without ``--ckpt``,
-random ones; the mesh is ``synthetic_face(48, 96, 80, 29)``. LPIPS
-(``--w_lpips > 0``, ``--vgg_weights``) and ``--bfm`` are not ported and
-are refused.
+random ones; the mesh is ``synthetic_face(48, 96, 80, 29)``. ``--w_lpips >
+0`` adds the LPIPS (VGG16) term, with a torchvision VGG16 state dict from
+``--vgg_weights`` or a random backbone. ``--bfm`` is not ported and is
+refused.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ import numpy as np
 import torch
 
 NOT_PORTED = {
-    "w_lpips": "--w_lpips > 0 needs the LPIPS network, which the port does not have yet",
-    "vgg_weights": "--vgg_weights feeds the LPIPS network, which the port does not have yet",
     "bfm": "--bfm needs the BFM loader, which the port does not have yet",
 }
 
@@ -41,8 +40,10 @@ def build_argparser():
     p.add_argument("--bfm", type=str, default="", help="not ported")
     p.add_argument("--iters", type=int, default=300)
     p.add_argument("--lr", type=float, default=0.05)
-    p.add_argument("--w_lpips", type=float, default=0.0, help="not ported above 0")
-    p.add_argument("--vgg_weights", type=str, default="", help="not ported")
+    p.add_argument("--w_lpips", type=float, default=0.0,
+                   help="LPIPS weight (needs --vgg_weights for true LPIPS)")
+    p.add_argument("--vgg_weights", type=str, default="",
+                   help="torchvision vgg16 state dict for the LPIPS backbone")
     p.add_argument("--out", type=str, default="recon")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--segments", type=int, default=1,
@@ -76,8 +77,14 @@ def main(argv=None):
 
         load_generator_weights(args.ckpt, gen)
 
+    lpips = None
+    if args.w_lpips > 0:
+        from stylerenderer_tpu_torch.eval import load_lpips
+
+        lpips = load_lpips("vgg", backbone_weights=args.vgg_weights or None, device=device)
+
     cfg = ProjectorConfig(iters=args.iters, lr=args.lr, w_lpips=args.w_lpips)
-    project = make_projector_jit(gen, face, tri, cfg)
+    project = make_projector_jit(gen, face, tri, cfg, lpips=lpips)
 
     imgs = []
     for path in args.photos:

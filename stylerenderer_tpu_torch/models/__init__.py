@@ -1,9 +1,11 @@
-"""The GAR generator and the discriminator."""
+"""The StyleGAN2 generator, the GAR generator and the discriminator."""
 
 from stylerenderer_tpu_torch.models.discriminator import Discriminator
 from stylerenderer_tpu_torch.models.generator import (
+    Generator,
     GeneratorWithMap,
     MappingNetwork,
+    StyledConv,
     StyledMapConv,
     ToRGB,
     channel_table,
@@ -12,6 +14,7 @@ from stylerenderer_tpu_torch.models.generator import (
 )
 
 __all__ = [
-    "Discriminator", "GeneratorWithMap", "MappingNetwork", "StyledMapConv", "ToRGB",
+    "Discriminator", "Generator", "GeneratorWithMap", "MappingNetwork", "StyledConv",
+    "StyledMapConv", "ToRGB",
     "channel_table", "make_noise", "stored_noise",
 ]

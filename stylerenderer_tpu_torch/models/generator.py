@@ -1,15 +1,17 @@
-"""The GAR: a StyleGAN2 generator conditioned on rasterized mesh normals
-(counterpart of ``GeneratorWithMap`` in
-``stylerenderer_tpu/models/generator.py``).
+"""The StyleGAN2 generator and the GAR, a StyleGAN2 generator conditioned
+on rasterized mesh normals (counterparts of ``Generator`` and
+``GeneratorWithMap`` in ``stylerenderer_tpu/models/generator.py``).
 
-At 4x4 and at every upsample step the mesh normals condition the features
-at that resolution: rasterized per level (one multi-level kernel pass
-renders the whole pyramid) or rasterized once and shrunk level by level
-(``pyramid_mode="downsample"``); a per-resolution ResBlock turns each
-normal map into (scale, shift) maps that modulate the styled convolutions
-before noise and activation. NCHW, reference state-dict names
+In the GAR, at 4x4 and at every upsample step the mesh normals condition
+the features at that resolution: rasterized per level (one multi-level
+kernel pass renders the whole pyramid) or rasterized once and shrunk level
+by level (``pyramid_mode="downsample"``); a per-resolution ResBlock turns
+each normal map into (scale, shift) maps that modulate the styled
+convolutions before noise and activation. NCHW, reference state-dict names
 (``style.{i}``, ``input.input``, ``conv1``, ``convs.{i}``, ``to_rgb1``,
-``to_rgbs.{i}``, ``norm1``, ``norm_to_style.{i}``, ``noises.noise_{i}``).
+``to_rgbs.{i}``, ``norm1``, ``norm_to_style.{i}``, ``noises.noise_{i}``);
+``Generator`` has the same names without ``norm1`` and ``norm_to_style``,
+so a reference ``g_ema`` loads into it with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -49,9 +51,8 @@ def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
     }
 
 
-class StyledMapConv(nn.Module):
-    """Modulated conv, then FiLM from the normal map
-    (``x * map[:, 0:1] + map[:, 1:2]``), noise and the fused bias-lrelu."""
+class StyledConv(nn.Module):
+    """Modulated conv, noise and the fused bias-lrelu."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
                  style_dim: int, upsample: bool = False, blur_kernel=(1, 3, 3, 1),
@@ -62,6 +63,14 @@ class StyledMapConv(nn.Module):
                                     blur_kernel=blur_kernel, dtype=dtype)
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_channel)
+
+    def forward(self, x, style, noise=None, generator=None):
+        return self.activate(self.noise(self.conv(x, style), noise, generator))
+
+
+class StyledMapConv(StyledConv):
+    """``StyledConv`` with FiLM from the normal map
+    (``x * map[:, 0:1] + map[:, 1:2]``) between the conv and the noise."""
 
     def forward(self, x, style, stylemap, noise=None, generator=None):
         x = self.conv(x, style)
@@ -147,7 +156,110 @@ def _mix_styles(styles, n_latent: int, inject_index, truncation, truncation_late
                        styles[1][:, None, :])
 
 
-class GeneratorWithMap(nn.Module):
+class _StyleGenerator(nn.Module):
+    """What both generators share: the mapping network's latents, style
+    mixing and truncation, and the ``noises.noise_{i}`` buffers."""
+
+    def _register_noise(self):
+        self.noises = nn.Module()
+        for i, nz in enumerate(stored_noise(self.num_layers)):
+            self.noises.register_buffer(f"noise_{i}", nz)
+
+    @property
+    def device(self) -> torch.device:
+        return self.input.input.device
+
+    def get_latent(self, z):
+        return self.style(z)
+
+    def mean_latent(self, n_latent: int, generator: torch.Generator | None = None):
+        z = torch.randn(n_latent, self.style_dim, generator=generator).to(self.device)
+        return self.style(z).mean(0, keepdim=True)
+
+    def _latent_and_noise(self, styles, input_is_latent, noise, randomize_noise,
+                          inject_index, truncation, truncation_latent):
+        """Per-layer latents ``[B, n_latent, D]`` and the noise list
+        (``randomize_noise=False`` with no ``noise``: the buffers)."""
+        if not isinstance(styles, (list, tuple)):
+            styles = [styles]
+        if not input_is_latent:
+            styles = [self.style(s) for s in styles]
+        if noise is None and not randomize_noise:
+            noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
+        latent = _mix_styles(styles, self.n_latent, inject_index, truncation,
+                             truncation_latent)
+        return latent, noise
+
+
+class Generator(_StyleGenerator):
+    """The unconditioned StyleGAN2 generator: constant 4x4 input, two styled
+    convs and a ToRGB per resolution, per-layer noise. Parameters are drawn
+    from ``seed`` and moved to ``device`` (``"cuda"`` unless asked
+    otherwise)."""
+
+    def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
+                 channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
+                 lr_mlp: float = 0.01, dtype=torch.float32, seed: int = 0, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.size, self.style_dim, self.dtype = size, style_dim, dtype
+        self.log_size = int(math.log2(size))
+        self.n_latent = self.log_size * 2 - 2
+        self.num_layers = (self.log_size - 2) * 2 + 1
+        ch = channel_table(channel_multiplier)
+
+        self.style = MappingNetwork(style_dim, n_mlp, lr_mlp)
+        self.input = ConstantInput(ch[4])
+        self.conv1 = StyledConv(ch[4], ch[4], 3, style_dim, blur_kernel=blur_kernel,
+                                dtype=dtype)
+        self.to_rgb1 = ToRGB(ch[4], style_dim, upsample=False, dtype=dtype)
+        self.convs = nn.ModuleList()
+        self.to_rgbs = nn.ModuleList()
+        in_channel = ch[4]
+        for i in range(3, self.log_size + 1):
+            out_channel = ch[2 ** i]
+            self.convs.append(StyledConv(in_channel, out_channel, 3, style_dim,
+                                         upsample=True, blur_kernel=blur_kernel, dtype=dtype))
+            self.convs.append(StyledConv(out_channel, out_channel, 3, style_dim,
+                                         blur_kernel=blur_kernel, dtype=dtype))
+            self.to_rgbs.append(ToRGB(out_channel, style_dim, dtype=dtype))
+            in_channel = out_channel
+        self._register_noise()
+        reset_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def synthesize(self, latent, noise=None, generator: torch.Generator | None = None):
+        """Image ``[B, 3, size, size]`` from per-layer latents
+        ``[B, n_latent, D]``; ``noise`` as in ``GeneratorWithMap.synthesize``."""
+        if noise is None:
+            noise = [None] * self.num_layers
+        out = self.input(latent.shape[0]).to(self.dtype)
+        out = self.conv1(out, latent[:, 0], noise[0], generator)
+        skip = self.to_rgb1(out, latent[:, 1])
+        i = 1
+        for level in range(len(self.to_rgbs)):
+            out = self.convs[2 * level](out, latent[:, i], noise[1 + 2 * level], generator)
+            out = self.convs[2 * level + 1](out, latent[:, i + 1], noise[2 + 2 * level],
+                                            generator)
+            skip = self.to_rgbs[level](out, latent[:, i + 2], skip)
+            i += 2
+        return skip
+
+    def forward(self, styles, return_latents: bool = False, inject_index=None,
+                truncation: float | None = None, truncation_latent=None,
+                input_is_latent: bool = False, noise=None, randomize_noise: bool = True,
+                generator: torch.Generator | None = None):
+        """-> (image ``[B, 3, size, size]``, latents or None).
+        ``randomize_noise=False`` with no ``noise`` uses the
+        ``noises.noise_{i}`` buffers."""
+        latent, noise = self._latent_and_noise(styles, input_is_latent, noise,
+                                               randomize_noise, inject_index, truncation,
+                                               truncation_latent)
+        image = self.synthesize(latent, noise, generator)
+        return image, latent if return_latents else None
+
+
+class GeneratorWithMap(_StyleGenerator):
     """The Generative Adversarial Renderer.
 
     ``mesh = (vert [B, nv, 3], norm [B, nv, 3], tri [nf, 3])``.
@@ -199,22 +311,9 @@ class GeneratorWithMap(nn.Module):
             self.norm_to_style.append(ResBlock(3, 4, downsample=False, dtype=dtype))
             self.to_rgbs.append(ToRGB(out_channel, style_dim, dtype=dtype))
             in_channel = out_channel
-        self.noises = nn.Module()
-        for i, nz in enumerate(stored_noise(self.num_layers)):
-            self.noises.register_buffer(f"noise_{i}", nz)
+        self._register_noise()
         reset_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.input.input.device
-
-    def get_latent(self, z):
-        return self.style(z)
-
-    def mean_latent(self, n_latent: int, generator: torch.Generator | None = None):
-        z = torch.randn(n_latent, self.style_dim, generator=generator).to(self.device)
-        return self.style(z).mean(0, keepdim=True)
 
     def normal_pyramid(self, mesh):
         """Rasterized normal maps at 4, 8, ..., size, ``[B, s, s, 3]`` each."""
@@ -266,14 +365,9 @@ class GeneratorWithMap(nn.Module):
         """-> (image ``[B, 3, size, size]``, latents or None, normal maps or
         None). ``randomize_noise=False`` with no ``noise`` uses the
         ``noises.noise_{i}`` buffers."""
-        if not isinstance(styles, (list, tuple)):
-            styles = [styles]
-        if not input_is_latent:
-            styles = [self.style(s) for s in styles]
-        if noise is None and not randomize_noise:
-            noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
-        latent = _mix_styles(styles, self.n_latent, inject_index, truncation,
-                             truncation_latent)
+        latent, noise = self._latent_and_noise(styles, input_is_latent, noise,
+                                               randomize_noise, inject_index, truncation,
+                                               truncation_latent)
         norm_maps = self.normal_pyramid(mesh)
         image = self.synthesize(latent, norm_maps, noise, generator)
         return (image, latent if return_latents else None,

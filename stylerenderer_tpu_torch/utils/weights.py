@@ -1,15 +1,23 @@
-"""Carry JAX ``GeneratorWithMap`` and ``Discriminator`` parameters into
-the port.
+"""Carry JAX parameters into the port: ``Generator``, ``GeneratorWithMap``,
+``Discriminator``, the FID ``InceptionV3`` and ``LPIPS``.
 
 The inverses of ``stylerenderer_tpu/utils/torch_import.py::import_generator``
-(``with_map=True``) and ``import_discriminator``: a flax params tree of
-numpy arrays becomes a state dict with the reference PyTorch model's names
-and layouts, which the port's ``load_state_dict(strict=True)`` accepts.
+(``with_map`` False and True) and ``import_discriminator``, and of the JAX
+eval package's torch loaders (``eval/inception.py::
+load_torch_inception_weights``, ``eval/lpips.py::_load_backbone`` and
+``_load_linear_heads``): a flax params tree of numpy arrays becomes a state
+dict with the reference PyTorch model's names and layouts, which the port's
+``load_state_dict(strict=True)`` accepts.
 
 - flax linear ``[in, out]``        -> ``[out, in]``
 - conv HWIO ``[kh, kw, in, out]``  -> OIHW (modulated conv: ``[1, out, in, kh, kw]``)
 - ConstantInput NHWC ``[1, 4, 4, C]`` -> ``[1, C, 4, 4]``
 - ToRGB bias ``[1, 1, 1, 3]``      -> ``[1, 3, 1, 1]``
+- Inception's flat ``bn_scale/bn_bias/bn_mean/bn_var`` -> ``bn.weight``,
+  ``bn.bias``, ``bn.running_mean``, ``bn.running_var``
+- an LPIPS head ``lin{i}`` ``[C]`` -> ``lin{i}.model.1.weight``
+  ``[1, C, 1, 1]``; the backbone's ``conv{i}`` -> torchvision's
+  ``features.{index}``
 - the FIR ``kernel`` buffers are rebuilt from ``blur_kernel``; the
   ``noises.noise_{i}`` buffers come from ``noise`` (NHWC ``[1, H, W, 1]``
   arrays, the JAX convention) or, without it, the port's ``stored_noise``.
@@ -20,12 +28,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stylerenderer_tpu_torch.eval.lpips import CONV_INDICES
 from stylerenderer_tpu_torch.models.generator import stored_noise
 from stylerenderer_tpu_torch.ops.upfirdn2d import make_kernel
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
+
+
+def _oihw(kernel) -> torch.Tensor:
+    """A conv kernel HWIO -> OIHW."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
 def _linear(sd, prefix, p):
@@ -57,7 +71,7 @@ def _conv_layer(sd, prefix, p, blur=None):
     if blur is not None:
         sd[f"{prefix}.0.kernel"] = blur.clone()
         ci = 1
-    sd[f"{prefix}.{ci}.weight"] = _t(np.transpose(np.asarray(p["conv"]["weight"]), (3, 2, 0, 1)))
+    sd[f"{prefix}.{ci}.weight"] = _oihw(p["conv"]["weight"])
     if "bias" in p["conv"]:
         sd[f"{prefix}.{ci}.bias"] = _t(p["conv"]["bias"])
     if "act_bias" in p:
@@ -75,9 +89,9 @@ def noise_from_jax(noise) -> list[torch.Tensor]:
     return [_t(np.transpose(np.asarray(n), (0, 3, 1, 2))) for n in noise]
 
 
-def state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
-    """JAX ``GeneratorWithMap`` params (``n_stylemap=3``) -> the port's
-    state dict."""
+def generator_state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
+    """JAX ``Generator`` params -> the port's ``Generator`` state dict (the
+    layers both generators share; ``state_dict_from_jax`` adds the GAR's)."""
     n_mlp = sum(1 for k in params["style"] if k.startswith("fc"))
     n_levels = sum(1 for k in params if k.startswith("to_rgbs_"))
     num_layers = 2 * n_levels + 1
@@ -95,12 +109,20 @@ def state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
     for i in range(n_levels):
         _to_rgb(sd, f"to_rgbs.{i}", params[f"to_rgbs_{i}"])
         sd[f"to_rgbs.{i}.upsample.kernel"] = up_kernel.clone()
-    _res_block(sd, "norm1", params["norm1"])
-    for i in range(n_levels):
-        _res_block(sd, f"norm_to_style.{i}", params[f"norm_to_style_{i}"])
     nz = noise_from_jax(noise) if noise is not None else stored_noise(num_layers)
     for i in range(num_layers):
         sd[f"noises.noise_{i}"] = nz[i][:1].clone()
+    return sd
+
+
+def state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
+    """JAX ``GeneratorWithMap`` params (``n_stylemap=3``) -> the port's
+    state dict."""
+    sd = generator_state_dict_from_jax(params, noise, blur_kernel)
+    n_levels = sum(1 for k in params if k.startswith("to_rgbs_"))
+    _res_block(sd, "norm1", params["norm1"])
+    for i in range(n_levels):
+        _res_block(sd, f"norm_to_style.{i}", params[f"norm_to_style_{i}"])
     return sd
 
 
@@ -124,4 +146,40 @@ def discriminator_state_dict_from_jax(params, size: int, blur_kernel=(1, 3, 3, 1
     w = np.transpose(w.reshape(4, 4, c, -1), (2, 0, 1, 3)).reshape(16 * c, -1)
     _linear(sd, "final_linear.0", dict(params["final_linear0"], weight=w))
     _linear(sd, "final_linear.1", params["final_linear1"])
+    return sd
+
+
+def inception_state_dict_from_jax(params) -> dict:
+    """JAX FID ``InceptionV3`` params -> the port's ``InceptionV3`` state
+    dict (the FID Inception's torch names, ``Conv2d_1a_3x3.conv.weight``,
+    ``Mixed_5b.branch1x1.bn.running_mean``, ...)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def basic(prefix, p):
+        sd[f"{prefix}.conv.weight"] = _oihw(p["conv"]["kernel"])
+        for ours, theirs in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                             ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+            sd[f"{prefix}.bn.{ours}"] = _t(p[theirs])
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    for top, sub in params.items():
+        if top.startswith("Conv2d"):
+            basic(top, sub)
+        else:  # Mixed_* blocks: each child is a BasicConv2d
+            for child, p in sub.items():
+                basic(f"{top}.{child}", p)
+    return sd
+
+
+def lpips_state_dict_from_jax(params, net: str = "vgg") -> dict:
+    """JAX ``LPIPS`` params -> the port's ``LPIPS`` state dict: torchvision's
+    backbone names (``features.{index}.weight``) and the published heads'
+    (``lin{i}.model.1.weight``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, tid in enumerate(CONV_INDICES[net]):
+        p = params["backbone"][f"conv{i}"]
+        sd[f"features.{tid}.weight"] = _oihw(p["kernel"])
+        sd[f"features.{tid}.bias"] = _t(p["bias"])
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = _t(np.asarray(params[f"lin{i}"]).reshape(1, -1, 1, 1))
     return sd

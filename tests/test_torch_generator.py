@@ -1,6 +1,7 @@
-"""The port's generator against the JAX package: weights carried across by
-``utils/weights.py``, layer parity, the whole GAR forward at a small size,
-the generation CLI, and the port's isolation from JAX.
+"""The port's generators against the JAX package: weights carried across by
+``utils/weights.py``, layer parity, the whole GAR and unconditioned
+Generator forwards at a small size, the generation CLI, and the port's
+isolation from JAX.
 
 Inputs are made with numpy from seeds and handed to both packages; the
 port runs on the CPU (convolutions there sum in another order than XLA's,
@@ -17,9 +18,12 @@ import jax.numpy as jnp
 import torch
 
 from stylerenderer_tpu.models.generator import (
+    Generator as JGenerator,
     GeneratorWithMap as JGeneratorWithMap,
+    StyledConv as JStyledConv,
     StyledMapConv as JStyledMapConv,
     ToRGB as JToRGB,
+    stored_noise as j_stored_noise,
 )
 from stylerenderer_tpu.nn.layers import (
     ModulatedConv2d as JModulatedConv2d,
@@ -30,10 +34,14 @@ from stylerenderer_tpu.face3d import mesh_point_normal as j_mesh_point_normal
 from stylerenderer_tpu.face3d import synthetic_face as j_synthetic_face
 from stylerenderer_tpu.ops.rasterize import rasterize_winners as j_rasterize_winners
 
-from stylerenderer_tpu_torch.models import GeneratorWithMap, StyledMapConv, ToRGB
+from stylerenderer_tpu_torch.models import (
+    Generator, GeneratorWithMap, StyledConv, StyledMapConv, ToRGB,
+)
 from stylerenderer_tpu_torch.nn.layers import ModulatedConv2d, ResBlock
 from stylerenderer_tpu_torch.ops.rasterize_multi import rasterize_winners_multi
-from stylerenderer_tpu_torch.utils.weights import noise_from_jax, state_dict_from_jax
+from stylerenderer_tpu_torch.utils.weights import (
+    generator_state_dict_from_jax, noise_from_jax, state_dict_from_jax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -177,6 +185,96 @@ def test_styled_map_conv_and_to_rgb_parity():
     prgb = _load_layer(ToRGB(cin, sdim), pr, fill_rgb)
     out = _nhwc(prgb(_nchw(xr), torch.from_numpy(style), _nchw(skip)))
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("upsample", [False, True])
+def test_styled_conv_parity(upsample):
+    rng = np.random.RandomState(9)
+    B, cin, cout, sdim, h = 2, 8, 6, 16, 8
+    ho = 2 * h if upsample else h
+    x = rng.randn(B, h, h, cin).astype(np.float32)
+    style = rng.randn(B, sdim).astype(np.float32)
+    noise = rng.randn(B, ho, ho, 1).astype(np.float32)
+    jm = JStyledConv(cout, 3, sdim, upsample=upsample)
+    p = _np_tree(_randomize(jm.init(jax.random.PRNGKey(0), x, style, noise)["params"], 10))
+    ref = np.asarray(jm.apply({"params": p}, x, style, noise))
+
+    def fill(sd, q):
+        _sd_modconv("conv.")(sd, q["conv"])
+        sd["noise.weight"] = torch.tensor([float(q["noise"]["weight"])])
+        sd["activate.bias"] = torch.from_numpy(q["act_bias"].copy())
+
+    pm = _load_layer(StyledConv(cin, cout, 3, sdim, upsample=upsample), p, fill)
+    out = _nhwc(pm(_nchw(x), torch.from_numpy(style), _nchw(noise)))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def small_gen():
+    """The unconditioned Generator at size 16 (style_dim 32, n_mlp 2,
+    channel multiplier 1): the port's weights, perturbed, carried to JAX by
+    ``import_generator`` and back by ``generator_state_dict_from_jax``,
+    with the JAX package's stored noise in the ``noises.*`` buffers."""
+    size, D = 16, 32
+    pg = Generator(size, D, 2, channel_multiplier=1, device="cpu", seed=7)
+    rng = np.random.RandomState(13)
+    sd = {k: v.numpy() + 0.2 * rng.randn(*v.shape).astype(np.float32)
+          for k, v in pg.state_dict().items() if "kernel" not in k}
+    params = import_generator(sd, size, 2, with_map=False)
+    jnoise = [np.asarray(n) for n in j_stored_noise(pg.num_layers)]
+    pg.load_state_dict(generator_state_dict_from_jax(params, noise=jnoise), strict=True)
+    return dict(pg=pg.eval(), jg=JGenerator(size, D, 2, channel_multiplier=1),
+                params=params, size=size, style_dim=D, B=2)
+
+
+def test_generator_weights_round_trip(small_gen):
+    """JAX Generator params -> port state dict -> load(strict) -> state
+    dict -> ``import_generator(with_map=False)``: the same arrays exactly;
+    the GAR's converter adds only the normal-map blocks."""
+    pg = small_gen["pg"]
+    sd = {k: v.numpy() for k, v in pg.state_dict().items()}
+    back = import_generator(sd, small_gen["size"], n_mlp=2, with_map=False)
+    _assert_tree_equal(small_gen["params"], back)
+    assert not any(k.startswith(("norm1", "norm_to_style")) for k in sd)
+    gar = GeneratorWithMap(small_gen["size"], small_gen["style_dim"], 2, channel_multiplier=1,
+                           device="cpu")
+    extra = set(gar.state_dict()) - set(sd)
+    assert extra and all(k.startswith(("norm1.", "norm_to_style.")) for k in extra)
+    assert set(sd) < set(gar.state_dict())
+
+
+@pytest.mark.parametrize("mode", ["explicit_noise", "stored_noise_mixed_truncated"])
+def test_generator_forward_parity(small_gen, mode):
+    """The whole Generator forward: same weights and latents, with explicit
+    noise or the stored buffers (``randomize_noise=False``), with and
+    without truncation and two-style mixing: images to rtol/atol 1e-4."""
+    g = small_gen
+    jg, pg, B, D = g["jg"], g["pg"], g["B"], g["style_dim"]
+    rng = np.random.RandomState(14)
+    z1, z2 = (rng.randn(B, D).astype(np.float32) for _ in range(2))
+    jparams = {"params": jax.tree_util.tree_map(jnp.asarray, g["params"])}
+    if mode == "explicit_noise":
+        noise = [rng.randn(B, r, r, 1).astype(np.float32) for r in (4, 8, 8, 16, 16)]
+        kw_j = dict(noise=[jnp.asarray(n) for n in noise])
+        kw_p = dict(noise=[_nchw(n) for n in noise])
+        styles_j, styles_p = [jnp.asarray(z1)], [torch.from_numpy(z1)]
+    else:
+        tl = rng.randn(1, D).astype(np.float32)
+        kw = dict(randomize_noise=False, truncation=0.7, inject_index=3)
+        kw_j = dict(kw, truncation_latent=jnp.asarray(tl))
+        kw_p = dict(kw, truncation_latent=torch.from_numpy(tl))
+        styles_j = [jnp.asarray(z1), jnp.asarray(z2)]
+        styles_p = [torch.from_numpy(z1), torch.from_numpy(z2)]
+    img_j, lat_j = jg.apply(jparams, styles_j, return_latents=True, **kw_j)
+    with torch.no_grad():
+        img_p, lat_p = pg(styles_p, return_latents=True, **kw_p)
+    np.testing.assert_allclose(lat_p.numpy(), np.asarray(lat_j), rtol=1e-5, atol=1e-5)
+    img_p = _nhwc(img_p)
+    assert img_p.shape == (B, 16, 16, 3)
+    assert np.isfinite(img_p).all() and np.abs(img_p).max() > 1e-3
+    np.testing.assert_allclose(img_p, np.asarray(img_j), rtol=1e-4, atol=1e-4)
+    mean_w = pg.mean_latent(64, torch.Generator().manual_seed(0))
+    assert mean_w.shape == (1, D)
 
 
 def test_resblock_parity():
@@ -329,6 +427,23 @@ def test_cli_generate_writes_png(tmp_path):
     assert (tmp_path / "000000_norm.png").exists()
 
 
+def test_cli_generate_without_map_writes_png(tmp_path, monkeypatch):
+    """``cli.generate`` without ``--with_map`` renders the unconditioned
+    Generator, truncation included, and launches no rasterizer."""
+    import stylerenderer_tpu_torch.models.generator as generator_mod
+    from stylerenderer_tpu_torch.cli.generate import main
+
+    monkeypatch.setattr(generator_mod, "rasterize_pyramid_fused", None)
+    paths = main(["--size", "16", "--latent", "32", "--n_mlp", "2", "--channel_multiplier",
+                  "1", "--sample", "4", "--pics", "2", "--device", "cpu", "--truncation",
+                  "0.7", "--truncation_mean", "16", "--out", str(tmp_path)])
+    assert [os.path.basename(p) for p in paths] == ["000000.png", "000001.png"]
+    for p in paths:
+        with open(p, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    assert sorted(os.listdir(tmp_path)) == ["000000.png", "000001.png"]
+
+
 def test_entry_points_refuse_missing_card(monkeypatch):
     from stylerenderer_tpu_torch.device import resolve_device
 
@@ -337,6 +452,8 @@ def test_entry_points_refuse_missing_card(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         GeneratorWithMap(8, 16, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Generator(8, 16, 1)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -367,7 +484,8 @@ def test_port_imports_without_jax():
         "utils.config", "models.discriminator", "train.losses", "train.state", "train.step",
         "face3d.augment", "utils.guards", "data.dataset", "utils.checkpoint",
         "utils.logging", "cli.train", "inversion", "inversion.project",
-        "cli.project")} <= set(mods)
+        "cli.project", "eval", "eval.inception", "eval.lpips", "eval.fid", "eval.ppl",
+        "eval.lpips_harness", "cli.fid", "cli.ppl", "cli.calc_inception")} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert not any(k == 'stylerenderer_tpu' or k.startswith('stylerenderer_tpu.')"

@@ -421,3 +421,114 @@ def test_cuda_cli_project(cuda, tmp_path):
         "fit.npz", "mesh_000.obj", "render.png", "target.png"]
     hist = np.load(tmp_path / "out" / "fit.npz")["loss_history"]
     assert hist.shape == (4,) and np.isfinite(hist).all() and hist[-1] < hist[0]
+
+
+def _tf32_off():
+    """Turn TF32 off; returns the flags to restore."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return flags
+
+
+def _restore_tf32(flags):
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["generator", "inception", "lpips"])
+def test_cuda_eval_nets_match_cpu(cuda, net):
+    """The unconditioned Generator (16 px, explicit noise; to 1e-4), the FID
+    InceptionV3's pool3 (64 px resized to 299, random-feature mode; to 1e-3
+    of its largest magnitude) and LPIPS VGG16 (64 px; to 1e-4 relative) on
+    the card equal their CPU results, TF32 off."""
+    from stylerenderer_tpu_torch.eval import load_lpips, load_patched_inception_v3
+    from stylerenderer_tpu_torch.models import Generator, make_noise
+
+    g = torch.Generator().manual_seed(0)
+    flags = _tf32_off()
+    try:
+        res = {}
+        for dev in ("cpu", cuda):
+            if net == "generator":
+                m = Generator(16, 32, 2, channel_multiplier=1, seed=3, device=dev).eval()
+                g.manual_seed(0)
+                z = torch.randn(2, 32, generator=g)
+                noise = make_noise(16, 2, g)
+                with torch.no_grad():
+                    out = m([z.to(dev)], noise=[n.to(dev) for n in noise])[0]
+            elif net == "inception":
+                m = load_patched_inception_v3(device=dev)
+                g.manual_seed(0)
+                x = torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+                with torch.no_grad():
+                    out = m(x.to(dev))
+            else:
+                m = load_lpips("vgg", device=dev)
+                g.manual_seed(0)
+                a, b = (torch.rand(2, 3, 64, 64, generator=g) * 2 - 1 for _ in range(2))
+                with torch.no_grad():
+                    out = m(a.to(dev), b.to(dev))
+            res[str(dev)] = out.cpu()
+    finally:
+        _restore_tf32(flags)
+    card, cpu = res["cuda"], res["cpu"]
+    assert torch.isfinite(card).all()
+    if net == "generator":
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
+    elif net == "inception":
+        assert float((card - cpu).abs().max()) <= 1e-3 * float(cpu.abs().max())
+    else:
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_lpips_gradient_finite_on_flat_render(cuda):
+    """LPIPS' gradient through a flat render (one colour) is finite on the
+    card and equals the CPU's to 1e-4 of its largest magnitude, TF32 off."""
+    from stylerenderer_tpu_torch.eval import load_lpips
+
+    target = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    flags = _tf32_off()
+    try:
+        grads = {}
+        for dev in ("cpu", cuda):
+            lp = load_lpips("vgg", device=dev)
+            x = torch.full((2, 3, 64, 64), -0.6, device=dev, requires_grad=True)
+            (gx,) = torch.autograd.grad(lp(x, target.to(dev)).sum(), x)
+            grads[str(dev)] = gx.cpu()
+    finally:
+        _restore_tf32(flags)
+    assert torch.isfinite(grads["cuda"]).all()
+    scale = float(grads["cpu"].abs().max())
+    assert scale > 0 and float((grads["cuda"] - grads["cpu"]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_fid_batch_k1_bitexact(cuda):
+    """K1 on a ``cli.fid --with_map`` batch's posed mesh (the sampler's own
+    draws, B=8): winners and values bit-equal to the plain version at all 7
+    levels, in one launch."""
+    from stylerenderer_tpu_torch.cli.fid import make_sampler
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+
+    face, tri = synthetic_face(48, 96, 80, 29, device=cuda)
+    seen = []
+
+    class Recorder(GeneratorWithMap):
+        def normal_pyramid(self, mesh):
+            seen.append(mesh)
+            return super().normal_pyramid(mesh)
+
+    gen = Recorder(256, 64, 1, channel_multiplier=1, device=cuda).eval()
+    before = rasterize_winners_multi.launches
+    with torch.no_grad():
+        img = make_sampler(gen, (face, tri))(torch.Generator().manual_seed(0), 8)
+    torch.cuda.synchronize()
+    assert rasterize_winners_multi.launches == before + 1
+    assert img.shape == (8, 3, 256, 256) and torch.isfinite(img).all()
+    vert, norm, _ = seen[0]
+    out = rasterize_winners_multi(vert, tri, 256, 7, attrs=norm)
+    ref = rasterize_winners_multi_ref(vert, tri, 256, 7, attrs=norm)
+    for k, ((va, wa), (vb, wb)) in enumerate(zip(out, ref)):
+        assert torch.equal(wa, wb), f"winners, level {k}"
+        assert torch.equal(va, vb), f"values, level {k}"

@@ -29,9 +29,11 @@ from stylerenderer_tpu.face3d import synthetic_face as j_synthetic_face
 from stylerenderer_tpu.inversion import ProjectorConfig as JProjectorConfig
 from stylerenderer_tpu.inversion import make_projector as j_make_projector
 from stylerenderer_tpu.inversion.project import _apply_pose as j_apply_pose
+from stylerenderer_tpu.eval.lpips import LPIPS as JLPIPS
 from stylerenderer_tpu.models import GeneratorWithMap as JGeneratorWithMap
 from stylerenderer_tpu.utils.torch_import import import_generator
 
+from stylerenderer_tpu_torch.eval.lpips import LPIPS
 from stylerenderer_tpu_torch.face3d import mesh_point_normal, save_obj, synthetic_face
 from stylerenderer_tpu_torch.face3d.morphable import LinearMorphableModel
 from stylerenderer_tpu_torch.inversion import (
@@ -40,7 +42,7 @@ from stylerenderer_tpu_torch.inversion import (
 from stylerenderer_tpu_torch.inversion.project import GEO, _apply_pose, fit_segmented
 from stylerenderer_tpu_torch.models import GeneratorWithMap
 from stylerenderer_tpu_torch.models.generator import make_noise
-from stylerenderer_tpu_torch.utils.weights import state_dict_from_jax
+from stylerenderer_tpu_torch.utils.weights import lpips_state_dict_from_jax, state_dict_from_jax
 
 SIZE, LATENT, N_MLP, B = 16, 32, 2, 2
 LMK = [0, 5, 17, 33, 60]
@@ -121,20 +123,22 @@ def jref(tiny):
     jit = jax.jit(proj, static_argnames=("n_steps", "return_state"))
     mean_w = np.array(jgen.apply({"params": params}, jax.random.split(rng)[0], 4096,
                                  method=jgen.mean_latent))
+    return dict(at=lambda p: _jax_at(jit, args, zopt, p), mean_w=mean_w, args=args,
+                zopt=zopt)
 
-    def at(p):
-        """JAX at port parameters p -> (loss, gradients, its one-step output)."""
-        p = {k: jnp.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
-             for k, v in p.items()}
-        out = jit(*args, state=(p, zopt), n_steps=1, return_state=True)
-        opt = out["state"][1]
-        assert jax.tree_util.tree_structure(opt) == jax.tree_util.tree_structure(zopt)
-        geo = opt.inner_states["geo"].inner_state[1][0].mu
-        g = {"w": opt.inner_states["lat"].inner_state[0].mu["w"], **{k: geo[k] for k in GEO}}
-        return (float(out["loss_history"][0]),
-                {k: np.asarray(g[k]) / (1 - B1) for k in ("w",) + GEO}, out)
 
-    return dict(at=at, mean_w=mean_w)
+def _jax_at(jit, args, zopt, p):
+    """A jitted JAX projector at port parameters p -> (loss, gradients, its
+    one-step output)."""
+    p = {k: jnp.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+         for k, v in p.items()}
+    out = jit(*args, state=(p, zopt), n_steps=1, return_state=True)
+    opt = out["state"][1]
+    assert jax.tree_util.tree_structure(opt) == jax.tree_util.tree_structure(zopt)
+    geo = opt.inner_states["geo"].inner_state[1][0].mu
+    g = {"w": opt.inner_states["lat"].inner_state[0].mu["w"], **{k: geo[k] for k in GEO}}
+    return (float(out["loss_history"][0]),
+            {k: np.asarray(g[k]) / (1 - B1) for k in ("w",) + GEO}, out)
 
 
 def _port_projector(tiny, **kw):
@@ -239,6 +243,62 @@ def test_projector_final_outputs_match_eager_jax(tiny, jref):
     np.testing.assert_allclose(out["vertices"].numpy(), np.asarray(vert), rtol=0, atol=1e-6)
     np.testing.assert_allclose(out["render"].permute(0, 2, 3, 1).numpy(), np.asarray(img),
                                rtol=1e-4, atol=1e-4)
+
+
+def _lpips_params(seed):
+    """JAX VGG LPIPS params made with numpy (He-scaled kernels, small
+    biases, heads around 1/C), without running its init."""
+    rs = np.random.RandomState(seed)
+    dummy = jnp.zeros((1, 64, 64, 3))
+    shapes = jax.eval_shape(JLPIPS(net="vgg").init, jax.random.PRNGKey(0), dummy,
+                            dummy)["params"]
+
+    def fill(path, s):
+        path = jax.tree_util.keystr(path)
+        if path.endswith("['kernel']"):
+            x = rs.randn(*s.shape) * np.sqrt(2.0 / np.prod(s.shape[:-1]))
+        elif path.endswith("['bias']"):
+            x = rs.randn(*s.shape) * 0.05
+        else:
+            x = rs.uniform(0.5, 1.5, s.shape) / s.shape[0]
+        return np.asarray(x, np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def test_projector_lpips_step_matches_jax(tiny, jref):
+    """One step with the paper's ``w_lpips=0.8`` through the real LPIPS
+    (VGG16 at the generator's 16 px), the JAX weights carried to the port by
+    ``lpips_state_dict_from_jax``: at the init, the total loss to 1e-5
+    relative and every gradient to 1e-4 of its largest magnitude against
+    the JAX projector with the JAX LPIPS."""
+    lparams = _lpips_params(21)
+    jl = JLPIPS(net="vgg")
+    cfg = dict(CFG, w_lpips=0.8)
+    proj = j_make_projector(tiny["jgen"], tiny["params"], tiny["jface"], tiny["jtri"],
+                            JProjectorConfig(**cfg),
+                            lpips_fn=lambda a, b: jl.apply({"params": lparams}, a, b),
+                            lmk_vidx=jnp.asarray(LMK))
+    jit = jax.jit(proj, static_argnames=("n_steps", "return_state"))
+    port_lpips = LPIPS("vgg")
+    port_lpips.load_state_dict(lpips_state_dict_from_jax(lparams), strict=True)
+    port_lpips.eval().requires_grad_(False)
+    project = make_projector(tiny["gen"], tiny["face"], tiny["tri"], ProjectorConfig(**cfg),
+                             lpips_fn=port_lpips, lmk_vidx=LMK)
+    mean_w = jref["mean_w"]
+    p = _init_point(tiny, mean_w)
+    zopt = zeroed(project(0, _port_target(tiny), _t(tiny["lmk"]), n_steps=1,
+                          return_state=True, mean_latent=mean_w)["state"][1])
+    out = project(0, _port_target(tiny), _t(tiny["lmk"]), state=(p, zopt), n_steps=1,
+                  mean_latent=mean_w)
+    jloss, jg, _ = _jax_at(jit, jref["args"], jref["zopt"], p)
+    np.testing.assert_allclose(float(out["loss_history"][0]), jloss, rtol=1e-5)
+    g = _port_grads(project, tiny, mean_w, p, zopt)
+    for name, ref in jg.items():
+        s = np.abs(ref).max()
+        assert s > 0, name
+        np.testing.assert_allclose(g[name] / s, ref / s, rtol=0, atol=1e-4, err_msg=name)
+    assert float(out["losses"]["lpips"]) > 0
 
 
 # ---- the port alone: init, noise, segments, validation ----------------------
@@ -461,11 +521,41 @@ def _cfg_dict():
     return TrainConfig(size=SIZE, latent=LATENT, n_mlp=N_MLP, channel_multiplier=1).to_dict()
 
 
-@pytest.mark.parametrize("flag", [["--w_lpips", "0.5"], ["--bfm", "x"],
-                                  ["--vgg_weights", "v.pt"]])
+@pytest.mark.parametrize("flag", [["--bfm", "x"]])
 def test_cli_project_refuses_unported(tmp_path, capsys, flag):
     from stylerenderer_tpu_torch.cli import project as cli
 
     with pytest.raises(SystemExit):
         cli.main([str(tmp_path / "a.png")] + TINY_ARGS + flag)
     assert cli.NOT_PORTED[flag[0][2:]] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("vgg_weights", [False, True])
+def test_cli_project_with_lpips(tmp_path, monkeypatch, vgg_weights):
+    """``cli.project --w_lpips 0.8`` fits with the port's VGG LPIPS in the
+    loss: random, or with ``--vgg_weights`` a torchvision state dict's
+    backbone loaded into it."""
+    import stylerenderer_tpu_torch.inversion as inversion
+    from stylerenderer_tpu_torch.cli import project as cli
+
+    seen = []
+    make = inversion.make_projector_jit
+
+    def record(*a, **k):
+        seen.append(k["lpips"])
+        return make(*a, **k)
+
+    monkeypatch.setattr(inversion, "make_projector_jit", record)
+    argv = [_photo(str(tmp_path / "a.png")), "--iters", "2", "--w_lpips", "0.8",
+            "--out", str(tmp_path / "out")] + TINY_ARGS
+    backbone = LPIPS("vgg").features
+    if vgg_weights:
+        torch.save({f"features.{k}": v for k, v in backbone.state_dict().items()},
+                   str(tmp_path / "vgg16.pth"))
+        argv += ["--vgg_weights", str(tmp_path / "vgg16.pth")]
+    cli.main(argv)
+    hist = np.load(tmp_path / "out" / "fit.npz")["loss_history"]
+    assert hist.shape == (2,) and np.isfinite(hist).all()
+    assert len(seen) == 1 and isinstance(seen[0], LPIPS) and seen[0].net == "vgg"
+    w = seen[0].features[0].weight
+    assert torch.equal(w, backbone[0].weight) == vgg_weights
