@@ -36,6 +36,13 @@ entry points a user calls, and prints what it measured:
   ``cli.generate`` without ``--with_map``, each timed, with LPIPS' share of
   the projector's device time; the FID network, LPIPS and the Generator
   against the CPU at a small size (phase 5);
+- the Regressor and the supervisor heads (phase 4g): ``ResNetUNet`` at
+  256 px, ``PFLDInference`` at 112 and ``InceptionResnetV1`` at 160 on the
+  card against the CPU; ``Regressor(256, 512, 8)`` trained for 50 steps at
+  B=8 on the training checkpoint's ``g_ema`` (K1 once a step, the loss
+  falling), then as the init of a 20-step ``each`` fit at B=8 (K1 21
+  times); ``cli.train --sfs --lmk --feat`` for 3 steps at B=16 and each
+  kind of step with the heads timed beside phase 4a's;
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -91,6 +98,10 @@ INV_LANDMARKS = 68
 FID_SAMPLES, FID_BATCH, PPL_SAMPLES, PPL_BATCH = 128, 32, 64, 16
 LPIPS_INV_BATCH = 8
 GEN_FORWARDS = 10
+# phase 4g: the Regressor's training steps and batch, the Regressor-initialized
+# fit's batch, the CLI steps with --sfs --lmk --feat, the supervisor nets'
+# batch on the card against the CPU
+REG_STEPS, REG_BATCH, REG_INV_BATCH, HEADS_STEPS, SUP_BATCH = 50, 8, 8, 3, 4
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -567,6 +578,7 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
     cycle = (step_ms["R1 + path"] + 3 * step_ms["path"] + 12 * step_ms["plain"]) / 16
     log(f"train: {cycle:.1f} ms per step over the 16-step cycle, {BATCH * 1e3 / cycle:.1f} "
         f"images/s")
+    return step_ms
 
 
 def inversion_phase(torch, np, dev, face, tri, run_path, check_fitted):
@@ -860,6 +872,195 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
         f"wrote a PNG; {smi}")
     log(f"eval phase: {time.perf_counter() - t_phase:.1f} s")
 
+def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, run_path,
+                          plain_step_ms):
+    """Phase 4g: the three supervisor nets on the card against the CPU; the
+    Regressor trained on the training checkpoint's ``g_ema`` (K1 once a
+    step, a falling loss); the Regressor-initialized fit on the inversion
+    targets (K1 21 times); ``cli.train --sfs --lmk --feat`` on the synth
+    shard, then each kind of step with the heads timed and counted. Fails
+    loudly on any check."""
+    from stylerenderer_tpu_torch.cli.train import main as train_main
+    from stylerenderer_tpu_torch.data import SRPackDataset, to_train_tensor
+    from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, Regressor
+    from stylerenderer_tpu_torch.supervisors import (
+        InceptionResnetV1, PFLDInference, ResNetUNet, make_extra_heads, random_stand_in_,
+    )
+    from stylerenderer_tpu_torch.train import (
+        init_regressor_state, make_regressor_fn, regressor_step, sample_draws,
+        sample_regressor_batch, train_step,
+    )
+    from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    shard = os.path.join(work, "faces256.srpack")
+    ckpt = os.path.join(work, "train", "checkpoint")
+    # 1. the supervisor nets (fixed-seed stand-ins) on the card against the
+    # CPU, TF32 off
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for cls, size in ((ResNetUNet, 256), (PFLDInference, 112), (InceptionResnetV1, 160)):
+            net = random_stand_in_(cls(), torch.Generator().manual_seed(1)).eval()
+            x = torch.rand(SUP_BATCH, 3, size, size, generator=torch.Generator().manual_seed(2))
+            x = x * 2 - 1
+            with torch.no_grad():
+                cpu = net(x)
+                card = net.to(dev)(x.to(dev))
+            outs = zip(cpu, card) if cls is ResNetUNet else [(cpu, card)]
+            errs = []
+            for a, b in outs:
+                err, scale = float((b.cpu() - a).abs().max()), float(a.abs().max())
+                if not (bool(torch.isfinite(b).all()) and err <= 1e-4 * scale):
+                    raise AssertionError(f"{cls.__name__} at {size} px: card vs CPU {err:.3e} "
+                                         f"of {scale:.3e}")
+                errs.append(f"max |diff| {err:.3e} of {scale:.3e}")
+            log(f"check: {cls.__name__} at {size} px, B={SUP_BATCH} (TF32 off, card vs CPU): "
+                + "; ".join(errs) + " (tolerance 1e-4 of the largest output)")
+            del net, cpu, card
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # 2. the Regressor's self-supervised training on the checkpoint's g_ema
+    face, tri = synth_mesh
+    gen = GeneratorWithMap(256, 512, 8, channel_multiplier=2, seed=0, device=dev)
+    load_generator_weights(ckpt, gen)
+    gen.eval().requires_grad_(False)
+    reg = Regressor(256, 512, 8, channel_multiplier=2, seed=0, device=dev)
+    state = init_regressor_state(reg, seed=0)
+
+    def reg_step():
+        img, w = sample_regressor_batch(gen, face, tri, REG_BATCH, state.generator)
+        return regressor_step(state, img, w)["regressor_loss"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist, counts = run_path("regressor train", lambda: [reg_step() for _ in range(REG_STEPS)])
+    reg_s = time.perf_counter() - t0
+    reg_peak = torch.cuda.max_memory_allocated()
+    hist = torch.stack(hist).cpu().numpy()
+    if counts != {"rasterize_multi": REG_STEPS, "rasterize_single": 0}:
+        raise AssertionError(f"regressor train: launches {counts}, expected {REG_STEPS} of K1")
+    first, last = float(hist[:10].mean()), float(hist[-10:].mean())
+    if not (np.isfinite(hist).all() and last < first):
+        raise AssertionError(f"regressor train: losses {hist}")
+    img, w = sample_regressor_batch(gen, face, tri, REG_BATCH, state.generator)
+    sampler_ms = cuda_ms(torch, lambda: sample_regressor_batch(gen, face, tri, REG_BATCH,
+                                                               state.generator), 5)
+    step_ms = cuda_ms(torch, lambda: regressor_step(state, img, w), 5)
+    prof = profile_step(torch, reg_step, top_n=6)
+    log(f"regressor train: Regressor(256, 512, 8, channel_multiplier=2) f32 "
+        f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}) on the training checkpoint's "
+        f"g_ema, B={REG_BATCH}, Adam lr 1e-4: {REG_STEPS} steps in {reg_s:.2f} s host clock "
+        f"({reg_s * 1e3 / REG_STEPS:.1f} ms per step); launches {counts}; loss "
+        f"{hist[0]:.5f} -> {hist[-1]:.5f}, mean of the first 10 {first:.5f}, of the last 10 "
+        f"{last:.5f}; peak memory {reg_peak / 2 ** 30:.2f} GiB; per step (CUDA events, mean "
+        f"of 5): sampler {sampler_ms:.2f} ms (z, mapping, posed mesh, K1, synthesis), step "
+        f"{step_ms:.2f} ms (forward, backward, Adam); one step profiled: device busy "
+        f"{prof['busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms host clock (busy share "
+        f"{prof['busy_ms'] / prof['wall_ms']:.3f}), {prof['events']} device events, K1 and "
+        f"its binning {prof['kernel_ms'] + prof['bins_ms']:.3f} ms; {smi}")
+    for t, n, op in prof["by_op"]:
+        log(f"    {t:9.3f} ms  {t / prof['busy_ms']:6.1%}  {n:5d} calls  {op}")
+    del gen, img, w
+
+    # 3. the Regressor-initialized fit on the inversion targets (the
+    # checkpoint's g_ema on the inversion mesh)
+    pface, ptri = mesh
+    target, target_lmk, lmk_vidx = targets
+    tgt, lmk = target[:REG_INV_BATCH], target_lmk[:REG_INV_BATCH]
+    pgen = GeneratorWithMap(256, 512, 8, channel_multiplier=2, seed=0, device=dev)
+    load_generator_weights(ckpt, pgen)
+    cfg = ProjectorConfig(iters=INV_ITERS, w_lpips=0.0)
+    project = make_projector(pgen, pface, ptri, cfg, lmk_vidx=lmk_vidx,
+                             regressor_fn=make_regressor_fn(reg))
+    project(0, tgt, lmk, n_steps=2)  # warm-up
+    name = f"regressor inversion each B={REG_INV_BATCH}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts = run_path(name, lambda: project(0, tgt, lmk))
+    inv_ms = (time.perf_counter() - t0) * 1e3 / INV_ITERS
+    if counts != {"rasterize_multi": INV_ITERS + 1, "rasterize_single": 0}:
+        raise AssertionError(f"{name}: launches {counts}, expected {INV_ITERS + 1} of K1")
+    ihist = out["loss_history"].cpu().numpy()
+    if ihist.shape != (INV_ITERS,) or not np.isfinite(ihist).all() or not ihist[-1] < ihist[0]:
+        raise AssertionError(f"{name}: loss history {ihist}")
+    mean_first = float(make_projector(pgen, pface, ptri, cfg, lmk_vidx=lmk_vidx)(
+        0, tgt, lmk, n_steps=1)["loss_history"][0])
+    log(f"{name}: the checkpoint's g_ema, {INV_ITERS} steps, {inv_ms:.1f} ms per step (host "
+        f"clock, init and final render included); launches {counts}; loss {ihist[0]:.5f} -> "
+        f"{ihist[-1]:.5f}; first loss {ihist[0]:.5f} from the Regressor's init, "
+        f"{mean_first:.5f} from the mean latent's (a figure, not a gate)")
+    del out, pgen, project
+
+    # 4. training with the three heads through the CLI, then each kind of
+    # step with the heads alone
+    out_dir = os.path.join(work, "train_heads")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tstate, counts = run_path("train heads", lambda: train_main([
+        shard, "--sfs", "--lmk", "--feat", "--iter", str(HEADS_STEPS), "--batch", str(BATCH),
+        "--d_reg_every", "16", "--g_reg_every", "4", "--log_every", "1", "--sample_every",
+        str(HEADS_STEPS), "--ckpt_every", str(HEADS_STEPS), "--seed", "0",
+        "--out_dir", out_dir]))
+    heads_s = time.perf_counter() - t0
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(HEADS_STEPS)]
+    want = {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds) + 1,
+            "rasterize_single": 0}  # + 1: the EMA sample grid
+    if counts != want:
+        raise AssertionError(f"train heads: launches {counts}, expected {want}")
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(HEADS_STEPS)):
+        raise AssertionError(f"train heads: logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if (not all(k in r and np.isfinite(r[k]) for k in ("sfs", "feature", "lmk", "g", "d"))
+                or r["nonfinite_steps"] != 0):
+            raise AssertionError(f"train heads: step {r['step']}: {r}")
+    log(f"train heads: cli.train --sfs --lmk --feat, 256 px, B={BATCH}, {HEADS_STEPS} steps "
+        f"in {heads_s:.1f} s (set-up, checkpoint and sample grid included); launches "
+        f"{counts}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for r, kind in zip(rows, kinds):
+        log(f"  step {r['step']} ({kind}): {r['step_ms']:.1f} ms host clock; g {r['g']:.4f}, "
+            f"sfs {r['sfs']:.5f}, feature {r['feature']:.6f}, lmk {r['lmk']:.5f}")
+    heads = make_extra_heads(1, sfs=True, lmk=True, feat=True, image_size=256, device=dev)
+    tcfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4)
+    ds = SRPackDataset(shard, 256)
+    real = to_train_tensor(ds.read_batch(np.arange(BATCH)), np.random.default_rng(0)).to(dev)
+    ds.reader.close()
+    for kind, at in STEP_KINDS.items():
+        def one(at=at):
+            tstate.step = at
+            draws = sample_draws(tstate.generator, tcfg, synth_mesh[0], BATCH,
+                                 tstate.g.n_latent, heads)
+            return train_step(tstate, real, draws, tcfg, *synth_mesh, heads)
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_REPS):
+            m = one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+        kind_peak = torch.cuda.max_memory_allocated()
+        _, counts = run_path(f"train heads step, {kind}", one)
+        n_k1 = 2 if kind == "plain" else 3
+        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0} or tstate.nonfinite_count:
+            raise AssertionError(f"train heads step ({kind}): launches {counts}, "
+                                 f"{tstate.nonfinite_count} non-finite steps")
+        log(f"train heads step, {kind}: {ms:.1f} ms (host clock, mean of {TRAIN_REPS}), "
+            f"{BATCH * 1e3 / ms:.1f} images/s, against {plain_step_ms[kind]:.1f} ms without "
+            f"the heads (phase 4a); peak memory {kind_peak / 2 ** 30:.2f} GiB; K1 launches "
+            f"{n_k1}; sfs {float(m['sfs']):.5f}, feature {float(m['feature']):.6f}, lmk "
+            f"{float(m['lmk']):.5f}")
+    log(f"phase 4g: {time.perf_counter() - t_phase:.1f} s; {smi}")
+
 
 def main() -> int:
     import numpy as np
@@ -1107,8 +1308,8 @@ def main() -> int:
                           f"({plain_ms:.1f} ms once)",
                           k1_measure(torch, np, v, synth_tri, N_LEVELS, n, keys_of_bins)))
 
-        train_phase(torch, np, dev, path, os.path.join(work.name, "train"), run_path,
-                    synth_face, synth_tri, check_k1)
+        train_step_ms = train_phase(torch, np, dev, path, os.path.join(work.name, "train"),
+                                    run_path, synth_face, synth_tri, check_k1)
 
     # ---- phase 4b: the "downsample" paths -------------------------------------
     def resize_chain(top):
@@ -1248,6 +1449,10 @@ def main() -> int:
                (synth_face, synth_tri), targets, run_path,
                lambda v, n, what: check_k1_samples(v, n, synth_tri, what, 4))
 
+    # ---- phase 4g: the Regressor and the supervisor heads --------------------
+    regressor_heads_phase(torch, np, dev, smi, work.name, (synth_face, synth_tri), (face, tri),
+                          targets, run_path, train_step_ms)
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1373,7 +1578,8 @@ def main() -> int:
     main_paths = ("each", "synth", "train", "downsample_fused=True", "downsample_fused=False",
                   "render_mean_face") + tuple(
         f"inversion {m}{'' if f else ' unfused'} B={b}" for m, f, b in INV_RUNS) + (
-        "eval fid", "eval ppl", f"eval lpips inversion each B={LPIPS_INV_BATCH}")
+        "eval fid", "eval ppl", f"eval lpips inversion each B={LPIPS_INV_BATCH}",
+        "regressor train", f"regressor inversion each B={REG_INV_BATCH}", "train heads")
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

@@ -6,9 +6,11 @@ sample grids, on one card (or the CPU with ``--device cpu``).
     python -m stylerenderer_tpu_torch.cli.train DATA.srpack [--size 256 --batch 16 ...]
 
 The mesh condition is the synthetic face ``synthetic_face(48, 96, 80, 29)``
-(9,024 triangles). ``--sfs``, ``--lmk`` and ``--feat`` (supervisor nets),
-``--bfm`` (BFM loading), ``--profile_steps`` and image-folder data are not
-ported and are refused. Each logged row of ``logs/metrics.jsonl`` carries
+(9,024 triangles). ``--sfs``, ``--lmk`` and ``--feat`` add the frozen
+supervisor heads' terms to the G step (``supervisors/hub.py``; fixed-seed
+random stand-ins drawn from ``seed + 1``, as the JAX trainer's). ``--bfm``
+(BFM loading), ``--profile_steps`` and image-folder data are not ported
+and are refused. Each logged row of ``logs/metrics.jsonl`` carries
 the step's metrics and ``step_ms``, its host-clock time (the step ends in
 one host synchronisation, reading its finite flag).
 """
@@ -22,9 +24,6 @@ import time
 import torch
 
 NOT_PORTED = {
-    "sfs": "--sfs needs the shape-from-shading supervisor, which the port does not have yet",
-    "lmk": "--lmk needs the landmark supervisor, which the port does not have yet",
-    "feat": "--feat needs the identity-feature supervisor, which the port does not have yet",
     "bfm": "--bfm needs the BFM loader, which the port does not have yet",
     "profile_steps": "--profile_steps is not ported; wrap the run in torch.profiler instead",
 }
@@ -64,9 +63,12 @@ def build_argparser():
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--pyramid_mode", type=str, default="each", choices=["each", "downsample"])
-    p.add_argument("--sfs", action="store_true", help="not ported")
-    p.add_argument("--lmk", action="store_true", help="not ported")
-    p.add_argument("--feat", action="store_true", help="not ported")
+    p.add_argument("--sfs", action="store_true",
+                   help="shape-from-shading consistency head (weight 0.01)")
+    p.add_argument("--lmk", action="store_true",
+                   help="landmark consistency head on geometry-paired samples (weight 1e-5)")
+    p.add_argument("--feat", action="store_true",
+                   help="identity consistency head on shape-paired samples (weight 0.001)")
     p.add_argument("--profile_steps", type=int, default=0, help="not ported")
     p.add_argument("--device", type=str, default="cuda")
     return p
@@ -88,6 +90,7 @@ def main(argv=None):
         mesh_point_normal, random_apply_pose3D, synthetic_face,
     )
     from stylerenderer_tpu_torch.models import make_noise
+    from stylerenderer_tpu_torch.supervisors import make_extra_heads
     from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
     from stylerenderer_tpu_torch.utils.checkpoint import (
         latest_step, load_checkpoint, save_checkpoint,
@@ -116,6 +119,8 @@ def main(argv=None):
     print(f"dataset: {len(dataset)} images at {cfg.size}px")
     face, tri = synthetic_face(48, 96, 80, 29, device=device)
     state = init_train_state(cfg, device, seed)
+    heads = make_extra_heads(cfg.seed + 1, sfs=args.sfs, lmk=args.lmk, feat=args.feat,
+                             image_size=cfg.size, device=device)
     start_iter = 0
     ckpt_dir = os.path.join(args.out_dir, "checkpoint")
     if args.ckpt:
@@ -150,10 +155,11 @@ def main(argv=None):
         for i in range(start_iter, cfg.iter):
             real = next(loader)
             t0 = time.perf_counter()
-            draws = sample_draws(state.generator, cfg, face, real.shape[0], state.g.n_latent)
+            draws = sample_draws(state.generator, cfg, face, real.shape[0], state.g.n_latent,
+                                 heads)
             # the step discards a non-finite update itself; the guard only
             # escalates to a checkpoint restore
-            metrics = train_step(state, real, draws, cfg, face, tri)
+            metrics = train_step(state, real, draws, cfg, face, tri, heads)
             step_ms = (time.perf_counter() - t0) * 1e3
             timer.tick()
             if i % args.log_every == 0:

@@ -29,6 +29,7 @@ from stylerenderer_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     scaled_leaky_relu,
 )
+from stylerenderer_tpu_torch.nn.spectral import SpectralEqualConv2d
 from stylerenderer_tpu_torch.ops.upfirdn2d import downsample2d, make_kernel, upfirdn2d
 
 
@@ -242,11 +243,16 @@ class _ScaledLeakyReLU(nn.Module):
 
 class ConvLayer(nn.Sequential):
     """``[Blur if downsample] EqualConv2d [FusedLeakyReLU]`` as a Sequential,
-    so the state-dict names are the reference's ``{i}.weight``/``{i}.bias``."""
+    so the state-dict names are the reference's ``{i}.weight``/``{i}.bias``.
+
+    ``activate``: ``True`` or ``"lrelu"`` adds the activation, ``False`` (or
+    another string) leaves it out; a string holding ``"sp"`` builds the
+    spectral-norm conv ``SpectralEqualConv2d`` with no activation, in
+    float32 whatever ``dtype`` (as the JAX package's ``ConvLayer``)."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
                  downsample: bool = False, blur_kernel=(1, 3, 3, 1),
-                 bias: bool = True, activate: bool = True, dtype=torch.float32):
+                 bias: bool = True, activate: bool | str = True, dtype=torch.float32):
         layers = []
         if downsample:
             factor = 2
@@ -255,6 +261,13 @@ class ConvLayer(nn.Sequential):
             stride, padding = 2, 0
         else:
             stride, padding = 1, kernel_size // 2
+        if isinstance(activate, str) and "sp" in activate.lower():
+            layers.append(SpectralEqualConv2d(in_channel, out_channel, kernel_size, stride,
+                                              padding, bias=bias))
+            super().__init__(*layers)
+            return
+        if isinstance(activate, str):
+            activate = activate == "lrelu"
         layers.append(EqualConv2d(in_channel, out_channel, kernel_size, stride,
                                   padding, bias=bias, dtype=dtype))
         if activate:

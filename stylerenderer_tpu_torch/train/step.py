@@ -1,6 +1,5 @@
 """One adversarial training step (counterpart of
-``stylerenderer_tpu/train/step.py::make_train_step``, without the
-supervisor heads), in the same order:
+``stylerenderer_tpu/train/step.py::make_train_step``), in the same order:
 
 1. D step (logistic loss) on fresh fakes from a freshly sampled, posed
    3DMM mesh, outside the gradient;
@@ -9,7 +8,12 @@ supervisor heads), in the same order:
    reals;
 3. lazy R1 on the (unaugmented) reals every ``d_reg_every`` steps, a second
    Adam update of D;
-4. G step (non-saturating loss) against D's parameters after R1;
+4. G step (non-saturating loss) against D's parameters after R1, plus the
+   supervisor heads' terms when ``heads`` are given (``supervisors/hub.py::
+   make_extra_heads``): ``sfs`` 0.01 x smooth L1 between the masked
+   normals of the fake image and the masked rasterized normal map,
+   ``feature`` 0.001 x the MSE between the two halves' embeddings, ``lmk``
+   1e-5 x smooth L1 between interleaved pairs' landmarks;
 5. lazy path-length regularization every ``g_reg_every`` steps over W and
    the detached normal-map pyramid, a second Adam update of G;
 6. the EMA of G;
@@ -19,7 +23,13 @@ supervisor heads), in the same order:
 
 Every random draw of a step is in a ``StepDraws`` (``sample_draws`` takes
 them from the state's ``torch.Generator``), so ``train_step(state, real,
-draws, ...)`` is deterministic. Each update takes its gradients with
+draws, ...)`` is deterministic. The heads pair the G step's samples as the
+reference does (``train.py:294-309``): with ``feat``, G's styles are drawn
+for the first half and repeated for the second, and the shape part of the
+3DMM sample is copied across the halves (``sample_draws``); with ``lmk``,
+the odd samples take the posed geometry of the even ones
+(``pair_geometry``) and G's fake skips ADA. Without heads the draws and
+the step are those of the plain trainer. Each update takes its gradients with
 ``torch.autograd.grad`` with respect to its own model's parameters only.
 Reading the finite flag is the step's one host synchronisation; it keeps
 ``state.step``, which schedules the regularizers, on the host.
@@ -34,6 +44,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from stylerenderer_tpu_torch.face3d.augment import AugDraws, ada_augment, aug_draws
 from stylerenderer_tpu_torch.face3d.geometry import apply_pose3D, mesh_point_normal, pose3D_draws
@@ -94,9 +105,16 @@ def _style_draws(gen: torch.Generator, batch: int, cfg: TrainConfig, n_latent: i
     return StyleDraws(z1, z2, mix, inject)
 
 
+def _halves(batch: int):
+    """(half, res): the first half ``(batch + 1) // 2`` and the rest."""
+    half = (batch + 1) // 2
+    return half, batch - half
+
+
 def sample_draws(gen: torch.Generator, cfg: TrainConfig, face, batch: int,
-                 n_latent: int) -> StepDraws:
-    """Draw a ``StepDraws`` for a real batch of ``batch`` on ``gen``'s device."""
+                 n_latent: int, heads=()) -> StepDraws:
+    """Draw a ``StepDraws`` for a real batch of ``batch`` on ``gen``'s device;
+    with ``"feat"`` in ``heads``, G's draws are paired across the halves."""
     dev = gen.device
     pb = path_batch_size(cfg, batch)
 
@@ -106,8 +124,17 @@ def sample_draws(gen: torch.Generator, cfg: TrainConfig, face, batch: int,
     d_styles = _style_draws(gen, batch, cfg, n_latent)
     d_face, d_pose = mesh()
     d_noise = make_noise(cfg.size, batch, gen, dev)
-    g_styles = _style_draws(gen, batch, cfg, n_latent)
-    g_face, g_pose = mesh()
+    if "feat" in heads:
+        half, res = _halves(batch)
+        g_styles = _style_draws(gen, half, cfg, n_latent)
+        g_styles.z1 = torch.cat([g_styles.z1, g_styles.z1[:res]])
+        g_styles.z2 = torch.cat([g_styles.z2, g_styles.z2[:res]])
+        g_face, g_pose = mesh()
+        dim0 = face.dim[0]
+        g_face[half:, :dim0] = g_face[:res, :dim0]
+    else:
+        g_styles = _style_draws(gen, batch, cfg, n_latent)
+        g_face, g_pose = mesh()
     g_noise = make_noise(cfg.size, batch, gen, dev)
     p_styles = _style_draws(gen, pb, cfg, n_latent)
     p_noise = make_noise(cfg.size, pb, gen, dev)
@@ -123,6 +150,36 @@ def posed_mesh(face, tri, face_x, pose):
     ``pose``, outside the gradient."""
     vert = apply_pose3D(face(face_x), pose)
     return vert, mesh_point_normal(vert, tri), tri
+
+
+def pair_geometry(t: torch.Tensor) -> torch.Tensor:
+    """The ``lmk`` pairing: sample ``2i + 1`` takes sample ``2i``'s value."""
+    t = t.clone()
+    t[1::2] = t[: 2 * (t.shape[0] // 2):2]
+    return t
+
+
+def _smooth_l1(a, b):
+    return F.smooth_l1_loss(a, b, beta=1.0)
+
+
+def head_losses(heads: dict, fimg, norms, batch: int) -> dict:
+    """The heads' terms ``{metric: (weight, value)}`` on G's images
+    ``fimg`` and normal maps ``norms``, in the JAX step's order."""
+    half, res = _halves(batch)
+    fimg = fimg.float()
+    out = {}
+    if "sfs" in heads:
+        nm = norms[-1]
+        mask = (torch.sum(nm * nm, -1, keepdim=True) > 1e-3).to(nm.dtype)
+        out["sfs"] = 0.01, _smooth_l1(mask * heads["sfs"](fimg), mask * nm)
+    if "feat" in heads:
+        feat = heads["feat"](fimg)
+        out["feature"] = 0.001, torch.mean((feat[:res] - feat[half:]) ** 2)
+    if "lmk" in heads:
+        lmk = heads["lmk"](fimg)
+        out["lmk"] = 1e-5, _smooth_l1(lmk[: res * 2:2], lmk[1::2])
+    return out
 
 
 def _grads(loss, params):
@@ -201,10 +258,13 @@ def ada_update(cfg: TrainConfig, p, signs, count, real_pred):
 
 
 def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: TrainConfig,
-               face, tri) -> dict:
+               face, tri, heads: dict | None = None) -> dict:
     """One step on the real batch ``real`` ``[B, 3, size, size]`` in [-1, 1];
     updates ``state`` in place and returns the metrics (0-d tensors on the
-    device, ``nonfinite_steps`` an int)."""
+    device, ``nonfinite_steps`` an int). ``heads``: the frozen supervisors
+    (``make_extra_heads``), whose ``draws`` come from ``sample_draws(...,
+    heads=heads)``."""
+    heads = heads or {}
     g, d = state.g, state.d
     g_params, d_params = list(g.parameters()), list(d.parameters())
     host_steps = _take_backup(state)
@@ -247,11 +307,18 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
 
     # ---- G step ----
     vert_g, norm_g, _ = posed_mesh(face, tri, draws.g_face, draws.g_pose)
-    fimg = g(draws.g_styles.styles(), (vert_g, norm_g, tri),
-             inject_index=draws.g_styles.inject, noise=draws.g_noise)[0]
-    if cfg.augment:
-        fimg = ada_augment(fimg, ada_p, draws.g_aug)
-    g_loss = losses.g_nonsaturating_loss(d(fimg))
+    if "lmk" in heads:
+        vert_g, norm_g = pair_geometry(vert_g), pair_geometry(norm_g)
+    fimg, _, norms = g(draws.g_styles.styles(), (vert_g, norm_g, tri),
+                       inject_index=draws.g_styles.inject, noise=draws.g_noise,
+                       return_normals="sfs" in heads)
+    fimg_d = fimg
+    if cfg.augment and "lmk" not in heads:
+        fimg_d = ada_augment(fimg, ada_p, draws.g_aug)
+    g_loss = losses.g_nonsaturating_loss(d(fimg_d))
+    for name, (weight, value) in head_losses(heads, fimg, norms, real.shape[0]).items():
+        g_loss = g_loss + weight * value
+        metrics[name] = value.detach()
     _adam_step(state.g_optim, g_params, _grads(g_loss, g_params))
     metrics["g"] = g_loss.detach()
 

@@ -485,7 +485,10 @@ def test_port_imports_without_jax():
         "face3d.augment", "utils.guards", "data.dataset", "utils.checkpoint",
         "utils.logging", "cli.train", "inversion", "inversion.project",
         "cli.project", "eval", "eval.inception", "eval.lpips", "eval.fid", "eval.ppl",
-        "eval.lpips_harness", "cli.fid", "cli.ppl", "cli.calc_inception")} <= set(mods)
+        "eval.lpips_harness", "cli.fid", "cli.ppl", "cli.calc_inception", "nn.spectral",
+        "models.regressor", "train.regressor", "supervisors", "supervisors.face_normals",
+        "supervisors.landmark", "supervisors.recognition", "supervisors.hub",
+        "supervisors.convert")} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert not any(k == 'stylerenderer_tpu' or k.startswith('stylerenderer_tpu.')"

@@ -532,3 +532,74 @@ def test_cuda_fid_batch_k1_bitexact(cuda):
     for k, ((va, wa), (vb, wb)) in enumerate(zip(out, ref)):
         assert torch.equal(wa, wb), f"winners, level {k}"
         assert torch.equal(va, vb), f"values, level {k}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["resnet_unet", "pfld", "facenet", "regressor"])
+def test_cuda_regressor_and_supervisors_match_cpu(cuda, net):
+    """The supervisor nets (``ResNetUNet`` at 64 px, ``PFLDInference`` at
+    112, ``InceptionResnetV1`` at 160, fixed-seed stand-ins) and the
+    ``Regressor(32, 64, 2)`` (its forward and one ``regressor_step``'s
+    loss) on the card equal their CPU results to 1e-4 of the largest
+    output, TF32 off."""
+    from stylerenderer_tpu_torch.models import Regressor
+    from stylerenderer_tpu_torch.supervisors import (
+        InceptionResnetV1, PFLDInference, ResNetUNet, random_stand_in_,
+    )
+    from stylerenderer_tpu_torch.train import init_regressor_state, regressor_step
+
+    nets = {"resnet_unet": (ResNetUNet, 64), "pfld": (PFLDInference, 112),
+            "facenet": (InceptionResnetV1, 160)}
+    g = torch.Generator().manual_seed(0)
+    flags = _tf32_off()
+    try:
+        res = {}
+        for dev in ("cpu", cuda):
+            g.manual_seed(0)
+            if net == "regressor":
+                m = Regressor(32, 64, 2, channel_multiplier=1, seed=1, device=dev)
+                x = torch.rand(2, 3, 32, 32, generator=g) * 2 - 1
+                w = torch.randn(2, 64, generator=g)
+                with torch.no_grad():
+                    out = m(x.to(dev))
+                loss = regressor_step(init_regressor_state(m), x.to(dev), w.to(dev))
+                out = torch.cat([out.flatten(), loss["regressor_loss"].reshape(1)])
+            else:
+                cls, size = nets[net]
+                m = random_stand_in_(cls(), torch.Generator().manual_seed(1)).eval().to(dev)
+                x = torch.rand(2, 3, size, size, generator=g) * 2 - 1
+                with torch.no_grad():
+                    out = m(x.to(dev))
+                out = out[1] if net == "resnet_unet" else out
+            res[str(dev)] = out.cpu()
+    finally:
+        _restore_tf32(flags)
+    card, cpu = res["cuda"], res["cpu"]
+    assert torch.isfinite(card).all()
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_with_heads(cuda):
+    """A train step at 32 px, B=4, with ``sfs``, ``lmk`` and ``feat`` on
+    the card: finite terms, K1 launched twice (the D and G steps' meshes),
+    the heads' nets frozen."""
+    from stylerenderer_tpu_torch.supervisors import make_extra_heads
+    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(size=32, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
+                      d_reg_every=16, g_reg_every=4)
+    face, tri = synthetic_face(12, 24, 4, 2, device=cuda)
+    st = init_train_state(cfg, cuda, seed=0)
+    st.step = 1
+    heads = make_extra_heads(1, sfs=True, lmk=True, feat=True, image_size=32, device=cuda)
+    real = torch.rand(4, 3, 32, 32, device=cuda) * 2 - 1
+    before = rasterize_winners_multi.launches
+    m = train_step(st, real, sample_draws(st.generator, cfg, face, 4, st.g.n_latent, heads),
+                   cfg, face, tri, heads)
+    torch.cuda.synchronize()
+    assert rasterize_winners_multi.launches == before + 2
+    assert st.step == 2 and m["nonfinite_steps"] == 0
+    for k in ("g", "sfs", "feature", "lmk"):
+        assert np.isfinite(float(m[k])), k
