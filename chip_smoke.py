@@ -102,6 +102,14 @@ GEN_FORWARDS = 10
 # fit's batch, the CLI steps with --sfs --lmk --feat, the supervisor nets'
 # batch on the card against the CPU
 REG_STEPS, REG_BATCH, REG_INV_BATCH, HEADS_STEPS, SUP_BATCH = 50, 8, 8, 3, 4
+# phase 4h: the face-model files at their published sizes over sphere meshes
+# (rows, columns; basis widths), the photos of the pipeline, its steps
+BFM_MESH, BFM_DIMS = (178, 300), (199, 29)  # 53,400 vertices, 106,200 triangles
+FW_MESH, FW_DIMS = (85, 135), (150, 47)     # 11,475 vertices; identities, expressions
+FLAME_MESH, FLAME_SHAPE = (51, 98), 400     # 4,998 vertices; 300 shape + 100 expression
+PHOTOS, PIPE_STEPS, PIPE_FID, PIPE_PPL = 32, 2, (64, 32), (16, 16)
+# the GAR at full width: phase 4h's models and CLIs
+GAR = dict(size=256, latent=512, n_mlp=8, channel_multiplier=2)
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -1062,6 +1070,429 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
     log(f"phase 4g: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
+def check_launches(counts, want, what):
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def warp_plain(np, img, M, size, border):
+    """``cv2.warpAffine(img, M, size[::-1], INTER_LINEAR, BORDER_CONSTANT or
+    BORDER_REFLECT)`` in numpy float64, the plain version of the port's
+    ``warp_affine`` (uint8 ``[H, W, C]`` in and out): ``M`` maps source to
+    destination pixels, pixel centres at integer coordinates, each bilinear
+    tap outside the image 0 or mirrored (``fedcba|abcdefgh|hgfedcb``)."""
+    H, W = img.shape[:2]
+    inv = np.linalg.inv(np.vstack([np.asarray(M, np.float64), [0.0, 0.0, 1.0]]))
+    ys, xs = np.mgrid[:size[0], :size[1]].astype(np.float64)
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    src = img.astype(np.float64)
+
+    def tap(yy, xx):
+        if border == "reflect":
+            xx, yy = np.mod(xx, 2 * W), np.mod(yy, 2 * H)
+            xx, yy = np.where(xx >= W, 2 * W - 1 - xx, xx), np.where(yy >= H, 2 * H - 1 - yy, yy)
+            return src[yy.astype(int), xx.astype(int)]
+        ok = ((xx >= 0) & (xx < W) & (yy >= 0) & (yy < H))[..., None]
+        return np.where(ok, src[np.clip(yy, 0, H - 1).astype(int),
+                                np.clip(xx, 0, W - 1).astype(int)], 0.0)
+
+    out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
+           + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def face_models_phase(torch, np, dev, smi, work, run_path, max_err, keys_of_bins):
+    """Phase 4h: the real face models and the data pipeline. A BFM ``.mat``
+    of the BFM 2009's size through ``load_bfm`` (K1 on its mesh,
+    ``render_mean_face`` at 256^2 through K2, both bit-equal to their plain
+    versions and timed beside their bounds); FaceWarehouse and FLAME at
+    their published sizes (forward on the card against the CPU, the
+    ``each`` GAR on their meshes, K1 bit-equal); then photos rendered from
+    the BFM by the training checkpoint, moved by known similarities,
+    through ``cli.align``, ``align_dataset`` with the PFLD detector,
+    ``cli.prepare_data`` (raw and JPEG), ``cli.train --bfm`` on the folder
+    and the JPEG shard, and ``generate``, ``project``, ``fid`` and ``ppl``
+    with ``--bfm``: each counted and checked. Fails loudly on any check."""
+    import io
+
+    import scipy.io
+    from PIL import Image
+    from torch_face_models import bfm_dict, facewarehouse_dict, flame_dict
+
+    from stylerenderer_tpu_torch.cli.align import main as align_main
+    from stylerenderer_tpu_torch.cli.fid import main as fid_main
+    from stylerenderer_tpu_torch.cli.generate import main as generate_main
+    from stylerenderer_tpu_torch.cli.ppl import main as ppl_main
+    from stylerenderer_tpu_torch.cli.prepare_data import main as prepare_main
+    from stylerenderer_tpu_torch.cli.project import main as project_main
+    from stylerenderer_tpu_torch.cli.train import main as train_main
+    from stylerenderer_tpu_torch.data import SRPackReader
+    from stylerenderer_tpu_torch.face3d import (
+        load_bfm, load_bfm_texture, load_facewarehouse, load_flame, mesh_point_normal,
+        random_apply_pose3D,
+    )
+    from stylerenderer_tpu_torch.face3d.alignment import (
+        LandmarksDetectorTorch, align_dataset, build_canonical_reference, read_bgr,
+        render_mean_face, solve_affine, warp_affine,
+    )
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+    from stylerenderer_tpu_torch.ops.rasterize_multi import (
+        rasterize_winners_multi, rasterize_winners_multi_ref,
+    )
+    from stylerenderer_tpu_torch.ops.rasterize_single import (
+        build_bins, card_tile, rasterize_winners_single, rasterize_winners_single_ref,
+    )
+    from stylerenderer_tpu_torch.supervisors import PFLDInference, random_stand_in_
+    from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
+    from stylerenderer_tpu_torch.utils.image import write_png
+
+    none = {"rasterize_multi": 0, "rasterize_single": 0}
+    size = GAR["size"]
+    gar_args = [f"--{k}={v}" for k, v in GAR.items()]
+    t_phase = time.perf_counter()
+
+    def k1_on(what, vert, norm, tri):
+        """K1 at 7 levels with C=3 values on ``vert``: samples 0-1 bit-equal
+        to the plain version, then timed at the whole batch beside its
+        bound."""
+        out = rasterize_winners_multi(vert[:2], tri, TOP, N_LEVELS, attrs=norm[:2])
+        ref, plain_ms = once_ms(torch, lambda: rasterize_winners_multi_ref(
+            vert[:2], tri, TOP, N_LEVELS, attrs=norm[:2]))
+        max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+            out, ref, True, f"K1 on {what}"))
+        del out, ref
+        m = k1_measure(torch, np, vert, tri, N_LEVELS, norm, keys_of_bins)
+        log(k1_report(f"K1 on {what}, B={vert.shape[0]}, {N_LEVELS} levels, C=3; samples 0-1 "
+                      f"bit-equal to the plain version ({plain_ms:.1f} ms once, B=2)", m))
+        return m
+
+    # 1. a BFM .mat of the BFM 2009's size, loaded on the card
+    t0 = time.perf_counter()
+    bfm = os.path.join(work, "bfm.mat")
+    scipy.io.savemat(bfm, bfm_dict(*BFM_MESH, *BFM_DIMS))
+    face, tri = load_bfm(bfm, device=dev)
+    tex = load_bfm_texture(bfm)
+    nv = face.mean.shape[0] // 3
+    log(f"bfm: a BFM .mat over a sphere mesh {BFM_MESH}: {nv} vertices, {tri.shape[0]} "
+        f"triangles, {face.shape_dim} shape and {face.expression_dim} expression directions, "
+        f"{os.path.getsize(bfm) / 2 ** 20:.0f} MiB; written and loaded on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(11)
+    vert = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+    norm = mesh_point_normal(vert, tri)
+    gen = GeneratorWithMap(GAR["size"], GAR["latent"], GAR["n_mlp"],
+                           channel_multiplier=GAR["channel_multiplier"], seed=0,
+                           device=dev).eval()
+    meshes = {"BFM": (vert, norm, tri)}
+    k1_rows = {"BFM": k1_on(f"the BFM mesh ({tri.shape[0]} triangles)", vert, norm, tri)}
+
+    # render_mean_face on the BFM mesh at 256^2: K2
+    img, counts = run_path("bfm render_mean_face",
+                           lambda: render_mean_face(face, tex, tri, size, size))
+    check_launches(counts, {"rasterize_multi": 0, "rasterize_single": 1},
+                   "render_mean_face on the BFM mesh")
+    v0 = face(torch.zeros(1, face.sigma.shape[0], device=dev))
+    ref, k2_plain_ms = once_ms(torch, lambda: rasterize_winners_single_ref(v0, tri, size, size))
+    max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+        rasterize_winners_single(v0, tri, size, size), ref, "K2 on the BFM mean face"))
+    tile = card_tile(size, size)
+    k2m = k2_measure(torch, np, v0, tri, size, size, tile, keys_of_bins, ref)
+    dat, _, starts = build_bins(v0, tri, size, size, False, EPS, tile)
+    k2b_ms, k2_by, nbytes, ops, pairs, n_valid = k2_bound(torch, dat, starts, size, size)
+    covered = float((ref >= 0).float().mean())
+    del dat, starts, ref
+    log(k2_report(f"K2 render_mean_face on the BFM mesh, {size}^2, B=1, bit-equal to its plain "
+                  f"version ({k2_plain_ms:.1f} ms once); launches {counts}; face pixels "
+                  f"{covered:.3f}", {tile: k2m})
+        + f"; bound {k2b_ms:.4f} ms by {k2_by} ({nbytes} bytes, {ops} f32 ops, {pairs} bbox "
+        f"pairs, {n_valid} valid triangles)")
+
+    # 2. FaceWarehouse and FLAME at their published sizes: forward on the card
+    # against the CPU (TF32 off), the each GAR on their meshes
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    for name, load, data in (
+            ("FaceWarehouse", load_facewarehouse, lambda: facewarehouse_dict(*FW_MESH, *FW_DIMS)),
+            ("FLAME", load_flame, lambda: flame_dict(*FLAME_MESH, FLAME_SHAPE))):
+        d = data()
+        t0 = time.perf_counter()
+        model, mtri = load(d, device=dev)
+        load_s = time.perf_counter() - t0
+        model_cpu, _ = load(d, device="cpu")
+        del d
+        x = model_cpu.random_input(BATCH, torch.Generator().manual_seed(12))
+        if not torch.equal(model.random_input(BATCH, torch.Generator().manual_seed(12)).cpu(),
+                           x):
+            raise AssertionError(f"{name}: random_input differs between the card's model and "
+                                 "the CPU's for the same generator")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                v_cpu = model_cpu(x)
+                v_card = model(x.to(dev))
+                fwd_ms = cuda_ms(torch, lambda: model(x.to(dev)), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        err, scale = float((v_card.cpu() - v_cpu).abs().max()), float(v_cpu.abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{name}: card vs CPU {err:.3e} of {scale:.3e}")
+        vert = random_apply_pose3D(g, v_card)
+        norm = mesh_point_normal(vert, mtri)
+        z = torch.randn(BATCH, GAR["latent"], generator=g).to(dev)
+        with torch.no_grad():
+            gen([z], (vert, norm, mtri))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, counts = run_path(f"{name} each", lambda: gen([z], (vert, norm, mtri))[0])
+            each_ms = (time.perf_counter() - t0) * 1e3
+        check_launches(counts, {"rasterize_multi": 1, "rasterize_single": 0}, f"{name} each")
+        if tuple(img.shape) != (BATCH, 3, size, size) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{name} each: image {tuple(img.shape)}")
+        log(f"{name}: {model.dim[2] // 3} vertices, {mtri.shape[0]} triangles, dims "
+            f"{model.dim[:2]}; loaded on the card in {load_s:.1f} s; forward B={BATCH} (TF32 off) card vs "
+            f"CPU max |diff| {err:.3e} of {scale:.3e} (tolerance 1e-5 of it), "
+            f"{fwd_ms:.3f} ms (CUDA events); random_input equal on both; each GAR f32 "
+            f"B={BATCH} {each_ms:.1f} ms host clock, launches {counts}")
+        meshes[name] = (vert, norm, mtri)
+        k1_rows[name] = k1_on(f"the {name} mesh ({mtri.shape[0]} triangles)", vert, norm, mtri)
+        del model, model_cpu, v_cpu, v_card, img
+    del gen, meshes
+
+    # 3. the pipeline at full width on the training checkpoint
+    ckpt = os.path.join(work, "train", "checkpoint")
+    pgen = GeneratorWithMap(GAR["size"], GAR["latent"], GAR["n_mlp"],
+                            channel_multiplier=GAR["channel_multiplier"], seed=0, device=dev)
+    load_generator_weights(ckpt, pgen)
+    pgen.eval()
+    lmk_vidx = np.linspace(0, nv - 1, 68).astype(np.int64)
+
+    def to_px(v):
+        """NDC -> pixel coordinates (``build_canonical_reference``'s map)."""
+        v = v.cpu().numpy()
+        return np.stack([(1 + v[..., 0]) * size / 2 - 0.5, (1 - v[..., 1]) * size / 2 - 0.5],
+                        -1)
+
+    # 3.1 photos: the GAR's renders of posed BFM faces, moved by known
+    # similarities with the port's warp, as PNGs with a landmark manifest
+    def render_photos():
+        outs, lmks = [], []
+        with torch.no_grad():
+            for _ in range(PHOTOS // BATCH):
+                z = torch.randn(BATCH, GAR["latent"], generator=g).to(dev)
+                v = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+                outs.append(pgen([z], (v, mesh_point_normal(v, tri), tri))[0])
+                lmks.append(to_px(v[:, lmk_vidx]))
+        return torch.cat(outs), np.concatenate(lmks)
+
+    t0 = time.perf_counter()
+    (renders, lmk), photo_counts = run_path("pipeline photos", render_photos)
+    render_s = time.perf_counter() - t0
+    check_launches(photo_counts, {"rasterize_multi": PHOTOS // BATCH, "rasterize_single": 0},
+                   "photos")
+    rgb = torch.clamp(torch.round((renders + 1) * 127.5), 0, 255)
+    bgr = rgb.flip(1)  # the photos as cv2 holds them: BGR
+    rng = np.random.RandomState(13)
+    S = []
+    for _ in range(PHOTOS):
+        th, sc = rng.uniform(-0.3, 0.3), rng.uniform(0.85, 1.15)
+        A = sc * np.asarray([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        c = np.asarray([size / 2 - 0.5] * 2)
+        S.append(np.concatenate([A, (c - A @ c + rng.uniform(-20, 20, 2))[:, None]], 1))
+    S = np.stack(S)
+    warp_ms = cuda_ms(torch, lambda: warp_affine(bgr, S, size), 5)
+    moved = torch.clamp(torch.round(warp_affine(bgr, S, size)), 0, 255)
+    moved_u8 = moved.permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+    renders_u8 = bgr.permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+    refl = torch.clamp(torch.round(warp_affine(bgr[:4], S[:4], size, "reflect")), 0, 255)
+    refl_u8 = refl.permute(0, 2, 3, 1).to(torch.uint8).cpu().numpy()
+    warp_err = 0
+    for i in range(PHOTOS):
+        warp_err = max(warp_err, int(np.abs(moved_u8[i].astype(int) - warp_plain(
+            np, renders_u8[i], S[i], (size, size), "constant")).max()))
+    for i in range(4):
+        warp_err = max(warp_err, int(np.abs(refl_u8[i].astype(int) - warp_plain(
+            np, renders_u8[i], S[i], (size, size), "reflect")).max()))
+    if warp_err > 1:
+        raise AssertionError(f"warp_affine on the card vs its plain version: {warp_err} levels")
+    photos_dir, aligned = os.path.join(work, "photos"), os.path.join(work, "aligned")
+    os.makedirs(photos_dir)
+    moved_lmk = np.einsum("bij,bnj->bni", S[:, :, :2], lmk) + S[:, None, :, 2]
+    manifest = os.path.join(work, "landmarks.txt")
+    with open(manifest, "w") as f:
+        for i in range(PHOTOS):
+            write_png(os.path.join(photos_dir, f"face{i:03d}.png"), moved_u8[i][:, :, ::-1])
+            f.write(f"face{i:03d}.png " + " ".join(f"{v:.6f}" for v in moved_lmk[i].reshape(-1))
+                    + "\n")
+    log(f"pipeline photos: {PHOTOS} BFM faces rendered by the training checkpoint's g_ema "
+        f"(f32, B={BATCH}) in {render_s:.2f} s, launches {photo_counts}; "
+        f"moved by random similarities (rotation up to 0.3 rad, scale 0.85-1.15, shift up "
+        f"to 20 px) with warp_affine on the card ({warp_ms:.3f} ms for {PHOTOS} at {size}^2, "
+        f"CUDA events, the host's f64 inversion included): zeros and mirrored borders within "
+        f"{warp_err} grey level of the plain "
+        f"warp (cv2.warpAffine's semantics in numpy f64; tolerance 1)")
+
+    # 3.2 cli.align with the manifest and the BFM's landmark vertices
+    t0 = time.perf_counter()
+    n, counts = run_path("pipeline align", lambda: align_main([
+        photos_dir, "--out", aligned, "--lmk_manifest", manifest, "--bfm", bfm, "--size",
+        str(size), "--lmk_vidx", ",".join(str(i) for i in lmk_vidx)]))
+    align_s = time.perf_counter() - t0
+    check_launches(counts, none, "cli align")
+    if n != PHOTOS or len(os.listdir(aligned)) != PHOTOS:
+        raise AssertionError(f"cli align: {n} photos aligned")
+    ref = build_canonical_reference(face, tri, lmk_vidx, size)
+    align_err, comp = 0, []
+    ones = np.full((size, size, 3), 255, np.uint8)
+    for i in range(PHOTOS):
+        got = read_bgr(os.path.join(aligned, f"face{i:03d}.png"))
+        M = solve_affine(moved_lmk[i], ref)
+        align_err = max(align_err, int(np.abs(got.astype(int) - warp_plain(
+            np, moved_u8[i], M, (size, size), "constant")).max()))
+        # the aligned photo against the one warp of its unmoved render, where
+        # both are inside their sources (two resamplings against one)
+        direct = warp_plain(np, renders_u8[i], solve_affine(lmk[i], ref), (size, size),
+                            "constant")
+        inside = (warp_plain(np, warp_plain(np, ones, S[i], (size, size), "constant"), M,
+                             (size, size), "constant") == 255).all(-1)
+        inside &= (warp_plain(np, ones, solve_affine(lmk[i], ref), (size, size),
+                              "constant") == 255).all(-1)
+        comp.append(float(np.abs(got.astype(int) - direct)[inside].mean()))
+    if align_err > 1 or max(comp) > 8.0:
+        raise AssertionError(f"cli align: {align_err} levels from the plain warp, mean "
+                             f"{max(comp):.2f} levels from the direct warp")
+    log(f"pipeline align: cli.align --lmk_manifest --bfm --lmk_vidx (68 vertices), {PHOTOS} "
+        f"photos at {size}^2 in {align_s:.2f} s: {PHOTOS / align_s:.1f} photos/s (host clock, "
+        f"set-up included); launches {counts}; each aligned photo within {align_err} grey "
+        f"level of the plain warp by solve_affine(its landmarks, the reference) (tolerance "
+        f"1), and a mean of {np.mean(comp):.3f} (at most {max(comp):.3f}) grey levels from "
+        f"the one warp of its unmoved render where both lie inside (tolerance a mean of 8: "
+        f"two bilinear resamplings against one blur the edges; a warp the wrong way round "
+        f"moves the face)")
+
+    # 3.3 align_dataset with the PFLD detector on the card, the reference
+    # detected on the BFM's textured mean face rendered at 256^2 (K2)
+    pfld = random_stand_in_(PFLDInference(), torch.Generator().manual_seed(14)).eval().to(dev)
+    t0 = time.perf_counter()
+    n, counts = run_path("pipeline align render_ref", lambda: align_dataset(
+        photos_dir, os.path.join(work, "aligned_pfld"), LandmarksDetectorTorch(pfld), face, tri,
+        size=size, tex=tex))
+    pfld_s = time.perf_counter() - t0
+    check_launches(counts, {"rasterize_multi": 0, "rasterize_single": 1},
+                   "align_dataset with the rendered reference")
+    if n != PHOTOS:
+        raise AssertionError(f"align_dataset: {n} photos aligned")
+    log(f"pipeline align_dataset(tex=...) with LandmarksDetectorTorch over the PFLD stand-in on "
+        f"the card: {PHOTOS} photos in {pfld_s:.2f} s ({PHOTOS / pfld_s:.1f} photos/s, the "
+        f"reference render included); launches {counts}")
+
+    # 3.4 cli.prepare_data on the aligned folder, raw and JPEG
+    shards = {}
+    for codec in ("raw", "jpeg"):
+        shards[codec] = os.path.join(work, f"aligned_{codec}.srpack")
+        t0 = time.perf_counter()
+        n, counts = run_path(f"pipeline prepare {codec}", lambda c=codec: prepare_main([
+            aligned, "--out", shards[c], "--size", f"{size // 2},{size}", "--codec", c]))
+        prep_s = time.perf_counter() - t0
+        check_launches(counts, none, f"cli prepare_data {codec}")
+        with SRPackReader(shards[codec]) as r:
+            if (r.n_items, r.sizes, r.codec) != (PHOTOS, [size // 2, size], int(codec == "jpeg")):
+                raise AssertionError(f"prepare {codec}: {r.n_items} items, sizes {r.sizes}")
+            item = r.decode(size, PHOTOS - 1)
+        want = read_bgr(os.path.join(aligned, f"face{PHOTOS - 1:03d}.png"))[:, :, ::-1]
+        if codec == "jpeg":  # PIL's round trip at quality 100, as prepare encodes
+            buf = io.BytesIO()
+            Image.fromarray(np.ascontiguousarray(want)).save(buf, format="jpeg", quality=100)
+            want = np.asarray(Image.open(buf).convert("RGB"))
+        if not np.array_equal(item, want):
+            raise AssertionError(f"prepare {codec}: the last item differs from its photo")
+        log(f"pipeline prepare: cli.prepare_data --codec {codec} --size {size // 2},{size} (8 "
+            f"worker processes): {PHOTOS} items in {prep_s:.2f} s, {PHOTOS / prep_s:.1f} items/s "
+            f"(host clock, the pool's start included); {os.path.getsize(shards[codec])} bytes; "
+            f"the last item at {size} px equal to its photo"
+            + (" through PIL's JPEG round trip at quality 100" if codec == "jpeg" else ""))
+
+    # 3.5 cli.train --bfm on the aligned folder and on the JPEG shard
+    train_ms = {}
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(PIPE_STEPS)]
+    for src, data in (("folder", aligned), ("jpeg shard", shards["jpeg"])):
+        out = os.path.join(work, f"train_bfm_{src.split()[0]}")
+        t0 = time.perf_counter()
+        state, counts = run_path(f"pipeline train bfm {src}", lambda d=data, o=out: train_main([
+            d, "--bfm", bfm, "--iter", str(PIPE_STEPS), "--batch", str(BATCH),
+            "--d_reg_every", "16", "--g_reg_every", "4", "--log_every", "1", "--sample_every",
+            str(PIPE_STEPS), "--ckpt_every", str(PIPE_STEPS), "--seed", "0", "--out_dir", o]
+            + gar_args))
+        run_s = time.perf_counter() - t0
+        check_launches(counts, {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds)
+                                + 1, "rasterize_single": 0}, f"cli train --bfm on the {src}")
+        with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows] != list(range(PIPE_STEPS)) or not all(
+                np.isfinite(v) for r in rows for v in r.values()) or state.nonfinite_count:
+            raise AssertionError(f"cli train --bfm on the {src}: {rows}")
+        train_ms[src] = [r["step_ms"] for r in rows]
+        log(f"pipeline train: cli.train --bfm on the aligned {src}, B={BATCH}, {PIPE_STEPS} "
+            f"steps in {run_s:.1f} s (set-up, checkpoint and sample grid included); launches "
+            f"{counts}; " + ", ".join(f"step {r['step']} ({k}) {r['step_ms']:.1f} ms"
+                                      for r, k in zip(rows, kinds)) + " (host clock)")
+
+    # 3.6 generate, project, fid and ppl with --bfm on the training checkpoint
+    t0 = time.perf_counter()
+    paths, counts = run_path("pipeline generate bfm", lambda: generate_main([
+        "--with_map", "--bfm", bfm, "--ckpt", ckpt, "--sample", "4", "--pics", "1", "--out",
+        os.path.join(work, "gen_bfm")] + gar_args))
+    check_launches(counts, {"rasterize_multi": 1, "rasterize_single": 0}, "cli generate --bfm")
+    log(f"pipeline cli: generate --with_map --bfm --ckpt: {time.perf_counter() - t0:.1f} s, "
+        f"launches {counts}, wrote {os.path.basename(paths[0])}")
+    out_dir = os.path.join(work, "recon_bfm")
+    pngs = [os.path.join(aligned, f"face{i:03d}.png") for i in range(2)]
+    t0 = time.perf_counter()
+    res, counts = run_path("pipeline project bfm", lambda: project_main(
+        pngs + ["--bfm", bfm, "--ckpt", ckpt, "--iters", "10", "--segments", "2", "--out",
+                out_dir] + gar_args))
+    check_launches(counts, {"rasterize_multi": 10 + 2, "rasterize_single": 0},
+                   "cli project --bfm")
+    hist = res["loss_history"].cpu().numpy()
+    if tuple(res["vertices"].shape) != (2, nv, 3) or not np.isfinite(hist).all():
+        raise AssertionError(f"cli project --bfm: vertices {tuple(res['vertices'].shape)}, "
+                             f"losses {hist}")
+    log(f"pipeline cli: project --bfm --ckpt on 2 aligned photos, --iters 10 --segments 2: "
+        f"{time.perf_counter() - t0:.1f} s, launches {counts}, loss {hist[0]:.5f} -> "
+        f"{hist[-1]:.5f}, meshes of {nv} vertices")
+    stats = os.path.join(work, "inception_faces256.pkl")
+    t0 = time.perf_counter()
+    fid, counts = run_path("pipeline fid bfm", lambda: fid_main([
+        "--with_map", "--bfm", bfm, "--ckpt", ckpt, "--inception", stats, "--n_sample",
+        str(PIPE_FID[0]), "--batch", str(PIPE_FID[1])] + gar_args))
+    check_launches(counts, {"rasterize_multi": PIPE_FID[0] // PIPE_FID[1],
+                            "rasterize_single": 0}, "cli fid --bfm")
+    if not (np.isfinite(fid) and fid > 0):
+        raise AssertionError(f"cli fid --bfm: {fid}")
+    log(f"pipeline cli: fid --with_map --bfm, {PIPE_FID[0]} samples, B={PIPE_FID[1]}: fid "
+        f"{fid:.4f} against the synth shard's statistics (random-feature Inception), "
+        f"{time.perf_counter() - t0:.1f} s (the 2048-d sqrtm included), launches {counts}")
+    t0 = time.perf_counter()
+    ppl, counts = run_path("pipeline ppl bfm", lambda: ppl_main([
+        "--with_map", "--bfm", bfm, "--ckpt", ckpt, "--n_sample", str(PIPE_PPL[0]), "--batch",
+        str(PIPE_PPL[1])] + gar_args))
+    check_launches(counts, {"rasterize_multi": 2 * PIPE_PPL[0] // PIPE_PPL[1],
+                            "rasterize_single": 0}, "cli ppl --bfm")
+    if not np.isfinite(ppl):
+        raise AssertionError(f"cli ppl --bfm: {ppl}")
+    log(f"pipeline cli: ppl --with_map --bfm, {PIPE_PPL[0]} pairs: ppl {ppl:.4f}, "
+        f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+    for name, m in k1_rows.items():
+        log(f"phase 4h K1 on the {name} mesh: {m['ms']:.4f} ms at B={BATCH}, bound "
+            f"{m['bound_ms']:.4f} ms by {m['bound_by']} ({m['ms'] / m['bound_ms']:.1f}x)")
+    log(f"phase 4h K2 on the BFM mean face (render_mean_face, {size}^2, B=1): "
+        f"{k2m['ms']:.4f} ms, bound {k2b_ms:.4f} ms by {k2_by}, plain {k2_plain_ms:.1f} ms")
+    log(f"phase 4h: {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return {"k1": k1_rows, "k2": (k2m, k2b_ms, k2_by, k2_plain_ms), "train_ms": train_ms}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1453,6 +1884,9 @@ def main() -> int:
     regressor_heads_phase(torch, np, dev, smi, work.name, (synth_face, synth_tri), (face, tri),
                           targets, run_path, train_step_ms)
 
+    # ---- phase 4h: the real face models and the data pipeline -----------------
+    face_models_phase(torch, np, dev, smi, work.name, run_path, max_err, keys_of_bins)
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1579,7 +2013,11 @@ def main() -> int:
                   "render_mean_face") + tuple(
         f"inversion {m}{'' if f else ' unfused'} B={b}" for m, f, b in INV_RUNS) + (
         "eval fid", "eval ppl", f"eval lpips inversion each B={LPIPS_INV_BATCH}",
-        "regressor train", f"regressor inversion each B={REG_INV_BATCH}", "train heads")
+        "regressor train", f"regressor inversion each B={REG_INV_BATCH}", "train heads",
+        "bfm render_mean_face", "FaceWarehouse each", "FLAME each", "pipeline photos",
+        "pipeline align", "pipeline align render_ref", "pipeline prepare raw",
+        "pipeline prepare jpeg", "pipeline train bfm folder", "pipeline train bfm jpeg shard",
+        "pipeline generate bfm", "pipeline project bfm", "pipeline fid bfm", "pipeline ppl bfm")
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

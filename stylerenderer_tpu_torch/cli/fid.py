@@ -6,9 +6,9 @@ python -m stylerenderer_tpu_torch.cli.fid --ckpt CKPT_DIR --inception stats.pkl 
 
 The weights are a checkpoint's (``g_ema``, else ``g``, loaded strictly);
 the real statistics come from ``cli.calc_inception`` (of either package).
-With ``--with_map`` each batch is rendered by the GAR on the synthetic
-face mesh with a random input and pose. Runs on the card unless
-``--device cpu``. ``--bfm`` is not ported and is refused.
+With ``--with_map`` each batch is rendered by the GAR on a face mesh (the
+BFM of ``--bfm``, else the synthetic face) with a random input and pose.
+Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -16,9 +16,6 @@ from __future__ import annotations
 import argparse
 
 import torch
-
-NOT_PORTED = {"bfm": "--bfm needs the BFM loader, which the port does not have yet"}
-
 
 def build_argparser():
     p = argparse.ArgumentParser(description="FID of a generator checkpoint (PyTorch)")
@@ -31,7 +28,7 @@ def build_argparser():
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--n_sample", type=int, default=50_000)
     p.add_argument("--with_map", action="store_true")
-    p.add_argument("--bfm", type=str, default="", help="not ported")
+    p.add_argument("--bfm", type=str, default="", help="BFM .mat (else the synthetic face)")
     p.add_argument("--inception_weights", type=str, default="")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--step", type=int, default=-1, help="checkpoint step (default: latest)")
@@ -60,16 +57,12 @@ def make_sampler(gen, mesh_model=None, noise_generator: torch.Generator | None =
 
 @torch.no_grad()
 def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(why)
+    args = build_argparser().parse_args(argv)
     from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.eval import (
         compute_fid, extract_features_from_samples, load_patched_inception_v3, load_stats,
     )
-    from stylerenderer_tpu_torch.face3d import synthetic_face
+    from stylerenderer_tpu_torch.face3d import load_face_model
     from stylerenderer_tpu_torch.models import Generator, GeneratorWithMap
     from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
 
@@ -78,7 +71,7 @@ def main(argv=None):
     gen = cls(args.size, args.latent, args.n_mlp, channel_multiplier=args.channel_multiplier,
               seed=args.seed, device=device).eval()
     load_generator_weights(args.ckpt, gen, step=None if args.step < 0 else args.step)
-    mesh_model = synthetic_face(48, 96, 80, 29, device=device) if args.with_map else None
+    mesh_model = load_face_model(args.bfm, device=device) if args.with_map else None
     inception = load_patched_inception_v3(args.inception_weights or None, device=device)
     sample = make_sampler(gen, mesh_model,
                           torch.Generator(device=device).manual_seed(args.seed + 1))

@@ -1,12 +1,12 @@
 """Generation CLI: sample image grids from the generator or the GAR.
 
 python -m stylerenderer_tpu_torch.cli.generate --size 256 --sample 4 \\
-    --pics 1 [--with_map [--save_normals]] [--ckpt CKPT_DIR] \\
+    --pics 1 [--with_map [--save_normals] [--bfm BFM.mat]] [--ckpt CKPT_DIR] \\
     [--truncation 0.7] [--out DIR] [--device cuda|cpu]
 
 Renders through the unconditioned ``Generator`` or, with ``--with_map``,
-through ``GeneratorWithMap`` conditioned on the synthetic face mesh, posed
-at random, with the weights of a checkpoint (``g_ema``, else ``g``, loaded
+through ``GeneratorWithMap`` conditioned on a face mesh (the BFM of
+``--bfm``, else the synthetic face) with a random input and pose, with the weights of a checkpoint (``g_ema``, else ``g``, loaded
 strictly) or, without ``--ckpt``, random ones. Runs on the card unless
 ``--device cpu``.
 """
@@ -35,6 +35,7 @@ def build_argparser():
     p.add_argument("--with_map", action="store_true",
                    help="render through the GAR (GeneratorWithMap) on a posed mesh, "
                         "not the unconditioned Generator")
+    p.add_argument("--bfm", type=str, default="", help="BFM .mat (else the synthetic face)")
     p.add_argument("--out", type=str, default="sample")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_normals", action="store_true")
@@ -47,7 +48,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.face3d import (
-        mesh_point_normal, random_apply_pose3D, synthetic_face,
+        load_face_model, mesh_point_normal, random_apply_pose3D,
     )
     from stylerenderer_tpu_torch.models import Generator, GeneratorWithMap
     from stylerenderer_tpu_torch.utils.image import save_image_grid
@@ -63,7 +64,7 @@ def main(argv=None):
 
         load_generator_weights(args.ckpt, gen)
     if args.with_map:
-        face, tri = synthetic_face(48, 96, 80, 29, device=device)
+        face, tri = load_face_model(args.bfm, device=device)
 
     trunc_latent = None
     if args.truncation < 1:

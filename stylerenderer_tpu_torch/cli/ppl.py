@@ -8,10 +8,10 @@ python -m stylerenderer_tpu_torch.cli.ppl --ckpt CKPT_DIR [--space w|z \\
 The weights are a checkpoint's (``g_ema``, else ``g``, loaded strictly).
 Every synthesis call uses one set of noise maps (the JAX CLI gives every
 call the same noise key). With ``--with_map`` one posed synthetic-face
-mesh batch, drawn once, conditions every call. LPIPS is VGG16, with a
-torchvision state dict from ``--vgg_weights`` or a random backbone. Runs
-on the card unless ``--device cpu``. ``--bfm`` is not ported and is
-refused.
+mesh batch (the BFM of ``--bfm``, else the synthetic face), drawn once,
+conditions every call. LPIPS is VGG16, with a torchvision state dict from
+``--vgg_weights`` or a random backbone. Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,6 @@ from __future__ import annotations
 import argparse
 
 import torch
-
-NOT_PORTED = {"bfm": "--bfm needs the BFM loader, which the port does not have yet"}
-
 
 def build_argparser():
     p = argparse.ArgumentParser(description="perceptual path length (PyTorch)")
@@ -37,7 +34,7 @@ def build_argparser():
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--n_sample", type=int, default=5_000)
     p.add_argument("--with_map", action="store_true")
-    p.add_argument("--bfm", type=str, default="", help="not ported")
+    p.add_argument("--bfm", type=str, default="", help="BFM .mat (else the synthetic face)")
     p.add_argument("--vgg_weights", type=str, default="",
                    help="torchvision vgg16 state dict for true LPIPS")
     p.add_argument("--seed", type=int, default=0)
@@ -73,14 +70,10 @@ def make_sampler(gen, lpips, batch: int, mesh_model=None, *, space: str = "w",
 
 @torch.no_grad()
 def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(why)
+    args = build_argparser().parse_args(argv)
     from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.eval import compute_ppl, load_lpips
-    from stylerenderer_tpu_torch.face3d import synthetic_face
+    from stylerenderer_tpu_torch.face3d import load_face_model
     from stylerenderer_tpu_torch.models import Generator, GeneratorWithMap
     from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
 
@@ -89,7 +82,7 @@ def main(argv=None):
     gen = cls(args.size, args.latent, args.n_mlp, channel_multiplier=args.channel_multiplier,
               seed=args.seed, device=device).eval()
     load_generator_weights(args.ckpt, gen)
-    mesh_model = synthetic_face(48, 96, 80, 29, device=device) if args.with_map else None
+    mesh_model = load_face_model(args.bfm, device=device) if args.with_map else None
     lpips = load_lpips("vgg", backbone_weights=args.vgg_weights or None, device=device)
     sampler = make_sampler(gen, lpips, args.batch, mesh_model, space=args.space,
                            sampling=args.sampling, eps=args.eps, crop=args.crop)

@@ -2,17 +2,17 @@
 (counterpart of ``stylerenderer_tpu/cli/project.py``).
 
 python -m stylerenderer_tpu_torch.cli.project PHOTO.png [PHOTO2.png ...] \\
-    [--ckpt CKPT_DIR] [--iters 300 --size 256 --segments 1 --out recon/] \\
+    [--ckpt CKPT_DIR] [--bfm BFM.mat] [--iters 300 --size 256 --segments 1 --out recon/] \\
     [--device cuda|cpu]
 
 Loads aligned photos, fits (w+, 3DMM parameters, pose) on the card (the
 CPU with ``--device cpu``) and writes ``render.png``, ``target.png``,
 ``mesh_{i:03d}.obj`` per photo and ``fit.npz``. The weights are a
 ``cli.train`` checkpoint's (``g_ema``, else ``g``) or, without ``--ckpt``,
-random ones; the mesh is ``synthetic_face(48, 96, 80, 29)``. ``--w_lpips >
-0`` adds the LPIPS (VGG16) term, with a torchvision VGG16 state dict from
-``--vgg_weights`` or a random backbone. ``--bfm`` is not ported and is
-refused.
+random ones; the face model is the BFM of ``--bfm``, else
+``synthetic_face(48, 96, 80, 29)``. ``--w_lpips > 0`` adds the LPIPS
+(VGG16) term, with a torchvision VGG16 state dict from ``--vgg_weights``
+or a random backbone.
 """
 
 from __future__ import annotations
@@ -23,11 +23,6 @@ import os
 import numpy as np
 import torch
 
-NOT_PORTED = {
-    "bfm": "--bfm needs the BFM loader, which the port does not have yet",
-}
-
-
 def build_argparser():
     p = argparse.ArgumentParser(description="render inverting (reconstruction), PyTorch")
     p.add_argument("photos", nargs="+", help="aligned face photos")
@@ -37,7 +32,7 @@ def build_argparser():
     p.add_argument("--latent", type=int, default=512)
     p.add_argument("--n_mlp", type=int, default=8)
     p.add_argument("--channel_multiplier", type=int, default=2)
-    p.add_argument("--bfm", type=str, default="", help="not ported")
+    p.add_argument("--bfm", type=str, default="", help="BFM .mat (else the synthetic face)")
     p.add_argument("--iters", type=int, default=300)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--w_lpips", type=float, default=0.0,
@@ -53,15 +48,11 @@ def build_argparser():
 
 
 def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(why)
+    args = build_argparser().parse_args(argv)
     from PIL import Image
 
     from stylerenderer_tpu_torch.device import resolve_device
-    from stylerenderer_tpu_torch.face3d import save_obj, synthetic_face
+    from stylerenderer_tpu_torch.face3d import load_face_model, save_obj
     from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector_jit
     from stylerenderer_tpu_torch.models import GeneratorWithMap
     from stylerenderer_tpu_torch.utils.image import save_image_grid
@@ -71,7 +62,7 @@ def main(argv=None):
     gen = GeneratorWithMap(args.size, args.latent, args.n_mlp,
                            channel_multiplier=args.channel_multiplier, seed=args.seed,
                            device=device)
-    face, tri = synthetic_face(48, 96, 80, 29, device=device)
+    face, tri = load_face_model(args.bfm, device=device)
     if args.ckpt:
         from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
 

@@ -3,14 +3,15 @@ adversarial training of the GAR with lazy R1 and path-length
 regularization, ADA, EMA, checkpoints, the finite guard and periodic
 sample grids, on one card (or the CPU with ``--device cpu``).
 
-    python -m stylerenderer_tpu_torch.cli.train DATA.srpack [--size 256 --batch 16 ...]
+    python -m stylerenderer_tpu_torch.cli.train DATA [--bfm BFM.mat --size 256 --batch 16 ...]
 
-The mesh condition is the synthetic face ``synthetic_face(48, 96, 80, 29)``
-(9,024 triangles). ``--sfs``, ``--lmk`` and ``--feat`` add the frozen
-supervisor heads' terms to the G step (``supervisors/hub.py``; fixed-seed
-random stand-ins drawn from ``seed + 1``, as the JAX trainer's). ``--bfm``
-(BFM loading), ``--profile_steps`` and image-folder data are not ported
-and are refused. Each logged row of ``logs/metrics.jsonl`` carries
+``DATA`` is an SRPack shard (raw or JPEG, ``cli.prepare_data``) or a
+folder of images, resized as they are read. The mesh condition is the BFM
+of ``--bfm`` or, without it, ``synthetic_face(48, 96, 80, 29)`` (9,024
+triangles). ``--sfs``, ``--lmk`` and ``--feat`` add the frozen supervisor
+heads' terms to the G step (``supervisors/hub.py``; fixed-seed random
+stand-ins drawn from ``seed + 1``, as the JAX trainer's).
+``--profile_steps`` is not ported and is refused. Each logged row of ``logs/metrics.jsonl`` carries
 the step's metrics and ``step_ms``, its host-clock time (the step ends in
 one host synchronisation, reading its finite flag).
 """
@@ -24,16 +25,15 @@ import time
 import torch
 
 NOT_PORTED = {
-    "bfm": "--bfm needs the BFM loader, which the port does not have yet",
     "profile_steps": "--profile_steps is not ported; wrap the run in torch.profiler instead",
 }
 
 
 def build_argparser():
     p = argparse.ArgumentParser(description="StyleRenderer trainer (PyTorch)")
-    p.add_argument("path", type=str, help="SRPack shard (raw codec)")
+    p.add_argument("path", type=str, help="SRPack shard or image folder")
     p.add_argument("--iter", type=int, default=800_000)
-    p.add_argument("--bfm", type=str, default="", help="not ported")
+    p.add_argument("--bfm", type=str, default="", help="BFM .mat (else the synthetic face)")
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--n_sample", type=int, default=64)
     p.add_argument("--size", type=int, default=256)
@@ -80,14 +80,11 @@ def main(argv=None):
     for flag, why in NOT_PORTED.items():
         if getattr(args, flag):
             parser.error(why)
-    if os.path.isdir(args.path):
-        parser.error("image-folder data is not ported; write a raw SRPack shard "
-                     "(stylerenderer_tpu_torch.data.synth, or the JAX package's prepare_data)")
 
-    from stylerenderer_tpu_torch.data import SRPackDataset, device_prefetch, prefetch_batches
+    from stylerenderer_tpu_torch.data import device_prefetch, open_dataset, prefetch_batches
     from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.face3d import (
-        mesh_point_normal, random_apply_pose3D, synthetic_face,
+        load_face_model, mesh_point_normal, random_apply_pose3D,
     )
     from stylerenderer_tpu_torch.models import make_noise
     from stylerenderer_tpu_torch.supervisors import make_extra_heads
@@ -115,9 +112,9 @@ def main(argv=None):
         compute_dtype=args.compute_dtype, pyramid_mode=args.pyramid_mode,
     )
 
-    dataset = SRPackDataset(args.path, resolution=cfg.size)
+    dataset = open_dataset(args.path, resolution=cfg.size)
     print(f"dataset: {len(dataset)} images at {cfg.size}px")
-    face, tri = synthetic_face(48, 96, 80, 29, device=device)
+    face, tri = load_face_model(args.bfm, device=device)
     state = init_train_state(cfg, device, seed)
     heads = make_extra_heads(cfg.seed + 1, sfs=args.sfs, lmk=args.lmk, feat=args.feat,
                              image_size=cfg.size, device=device)

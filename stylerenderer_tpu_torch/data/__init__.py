@@ -1,12 +1,18 @@
 """Data: the SRPack shard writer and reader, the training datasets and
-their prefetching, and the synthetic shaded-face dataset."""
+their prefetching, dataset preparation from an image folder, and the
+synthetic shaded-face dataset."""
 
 from stylerenderer_tpu_torch.data.dataset import (
+    IMG_EXTENSIONS,
+    ImageFolderDataset,
     SRPackDataset,
     device_prefetch,
+    list_images,
+    open_dataset,
     prefetch_batches,
     to_train_tensor,
 )
+from stylerenderer_tpu_torch.data.prepare import prepare
 from stylerenderer_tpu_torch.data.srpack import SRPackReader, SRPackWriter
 from stylerenderer_tpu_torch.data.synth import (
     make_synth_batch,
@@ -15,6 +21,8 @@ from stylerenderer_tpu_torch.data.synth import (
 )
 
 __all__ = [
-    "SRPackDataset", "SRPackReader", "SRPackWriter", "device_prefetch", "make_synth_batch",
-    "prefetch_batches", "shade_faces", "to_train_tensor", "write_synth_dataset",
+    "IMG_EXTENSIONS", "ImageFolderDataset", "SRPackDataset", "SRPackReader", "SRPackWriter",
+    "device_prefetch", "list_images", "make_synth_batch", "open_dataset", "prefetch_batches",
+    "prepare",
+    "shade_faces", "to_train_tensor", "write_synth_dataset",
 ]

@@ -1,28 +1,38 @@
 """Training data (counterpart of ``stylerenderer_tpu/data/dataset.py``):
-an SRPack dataset, a background-thread batch pipeline and a device
-prefetch.
+an SRPack dataset, an image-folder dataset, a background-thread batch
+pipeline and a device prefetch.
 
-- ``SRPackDataset``: the images of one resolution of a raw SRPack shard;
+- ``SRPackDataset``: the images of one resolution of an SRPack shard
+  (raw: read natively in batches; JPEG: decoded with PIL item by item);
+- ``ImageFolderDataset``: a folder of images, found recursively by
+  extension and resized with PIL's ``LANCZOS`` as they are read;
 - ``prefetch_batches``: batches read natively and turned into training
   tensors (random horizontal flip, [-1, 1], NCHW float32) in a background
   thread, seeded, optionally in pinned memory;
 - ``device_prefetch``: keeps ``depth`` batches in flight to the device with
   ``non_blocking`` copies, so the copy overlaps the step.
-
-Image folders (decoded with an imaging package) are not ported.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
 
 from stylerenderer_tpu_torch.data.srpack import CODEC_RAW, SRPackReader
+
+IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".ppm", ".tif", ".tiff")
+
+
+def list_images(root: str, extensions: Sequence[str] = IMG_EXTENSIONS) -> list[str]:
+    """Every file under ``root`` (recursively) with an image extension, sorted."""
+    return sorted(os.path.join(dirpath, n) for dirpath, _, names in os.walk(root)
+                  for n in names if os.path.splitext(n)[1].lower() in extensions)
 
 
 def to_train_tensor(batch_u8: np.ndarray, rng: np.random.Generator | None = None,
@@ -37,16 +47,13 @@ def to_train_tensor(batch_u8: np.ndarray, rng: np.random.Generator | None = None
 
 
 class SRPackDataset:
-    """The images at ``resolution`` of a raw SRPack shard."""
+    """The images at ``resolution`` of an SRPack shard."""
 
     def __init__(self, path: str, resolution: int = 256):
         self.reader = SRPackReader(path)
         if resolution not in self.reader.sizes:
             raise ValueError(f"resolution {resolution} missing from {path} "
                              f"(available: {self.reader.sizes})")
-        if self.reader.codec != CODEC_RAW:
-            raise ValueError(f"{path}: JPEG shard; the port reads raw shards only "
-                             "(it carries no JPEG decoder)")
         self.resolution = resolution
 
     def __len__(self) -> int:
@@ -56,7 +63,43 @@ class SRPackDataset:
         return self.reader.decode(self.resolution, idx)
 
     def read_batch(self, indices) -> np.ndarray:
-        return self.reader.read_batch_raw(self.resolution, indices)
+        if self.reader.codec == CODEC_RAW:
+            return self.reader.read_batch_raw(self.resolution, indices)
+        return np.stack([self.reader.decode(self.resolution, int(i)) for i in indices])
+
+
+class ImageFolderDataset:
+    """The images under ``root`` (recursively, by extension, sorted), each
+    resized to ``resolution`` (0 keeps its size) with PIL's ``LANCZOS``
+    as it is read."""
+
+    def __init__(self, root: str, resolution: int = 256,
+                 extensions: Sequence[str] = IMG_EXTENSIONS):
+        self.root = root
+        self.resolution = resolution
+        self.files = list_images(root, extensions)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        from PIL import Image
+
+        with Image.open(self.files[idx]) as im:
+            img = im.convert("RGB")
+        if self.resolution:
+            img = img.resize((self.resolution, self.resolution), Image.LANCZOS)
+        return np.asarray(img)
+
+    def read_batch(self, indices) -> np.ndarray:
+        return np.stack([self[int(i)] for i in indices])
+
+
+def open_dataset(path: str, resolution: int = 256):
+    """``ImageFolderDataset`` for a directory, else ``SRPackDataset``."""
+    if os.path.isdir(path):
+        return ImageFolderDataset(path, resolution=resolution)
+    return SRPackDataset(path, resolution=resolution)
 
 
 def prefetch_batches(dataset, batch_size: int, *, seed: int = 0, train: bool = True,

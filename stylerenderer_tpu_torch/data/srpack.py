@@ -11,16 +11,15 @@ A shard holds every image at every requested resolution behind a flat
 - the records, in the same order.
 
 Codecs: ``raw`` (uint8 HWC pixels, decode-free) and ``jpeg`` (encoded
-bytes as given). The reader mmaps the shard in native code
-(``csrc/srpack.cpp``, built with g++ at first use, loaded with ``ctypes``)
-and gathers batches with a pool of threads. It decodes the raw codec
-only: the port carries no image decoder, so a JPEG shard's images raise
-(its records can still be read as bytes).
+bytes as given, decoded with PIL on read). The reader mmaps the shard in
+native code (``csrc/srpack.cpp``, built with g++ at first use, loaded
+with ``ctypes``) and gathers raw batches with a pool of threads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import io
 import struct
 from typing import Sequence
 
@@ -124,8 +123,7 @@ class SRPackReader:
     def read_batch_raw(self, resolution: int, items) -> np.ndarray:
         """Batched zero-decode read (raw codec): -> uint8 ``[N, s, s, 3]``."""
         if self.codec != CODEC_RAW:
-            raise ValueError(f"{self.path}: JPEG shard; the port reads raw shards only "
-                             "(it carries no JPEG decoder)")
+            raise ValueError(f"{self.path}: JPEG shard; read it with decode()")
         si = self.size_index(resolution)
         items = np.ascontiguousarray(items, np.int64)
         stride = resolution * resolution * 3
@@ -138,9 +136,14 @@ class SRPackReader:
         return out
 
     def decode(self, resolution: int, item: int) -> np.ndarray:
-        """-> uint8 ``[s, s, 3]`` (raw codec)."""
+        """-> uint8 ``[s, s, 3]``, whatever the codec."""
         self._check_item(item)
-        return self.read_batch_raw(resolution, np.asarray([item]))[0]
+        if self.codec == CODEC_RAW:
+            return self.read_batch_raw(resolution, np.asarray([item]))[0]
+        from PIL import Image
+
+        with Image.open(io.BytesIO(self.read_record(resolution, item))) as im:
+            return np.asarray(im.convert("RGB"))
 
     def close(self) -> None:
         if self._h:

@@ -1,10 +1,42 @@
 """3D transform builders (counterpart of
-``stylerenderer_tpu/face3d/transforms.py``; the parts the geometry and
-the augmentation need)."""
+``stylerenderer_tpu/face3d/transforms.py``): homogeneous translation and
+scale and the in-plane rotation in the row-vector layout (``p_h @ T``),
+Euler angles and Rodrigues' formula."""
 
 from __future__ import annotations
 
 import torch
+
+
+def translate_mat(t) -> torch.Tensor:
+    """``[..., n]`` translation -> ``[..., n+1, n+1]`` homogeneous matrix laid
+    out for row vectors, ``p_h @ T``: the translation is the last row."""
+    t = torch.as_tensor(t)
+    single = t.ndim == 1
+    if single:
+        t = t[None]
+    b, n = t.shape
+    mat = torch.eye(n + 1, dtype=t.dtype, device=t.device).repeat(b, 1, 1)
+    mat[:, n, :n] = t
+    return mat[0] if single else mat
+
+
+def rotate_mat(theta) -> torch.Tensor:
+    """Rotation about the image z-axis: angles ``[...]`` -> ``[..., 3, 3]``."""
+    theta = torch.as_tensor(theta)
+    c, s = torch.cos(theta), torch.sin(theta)
+    o, i = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([c, -s, o, s, c, o, o, o, i], -1).reshape(theta.shape + (3, 3))
+
+
+def scale_mat(s, dim: int | None = None) -> torch.Tensor:
+    """Per-axis scales ``[..., n]`` (or isotropic ``[...]`` repeated ``dim``
+    times) -> the homogeneous diagonal ``[..., n+1, n+1]``."""
+    s = torch.as_tensor(s)
+    if dim is not None and dim > 0:
+        s = s[..., None].expand(s.shape + (dim,))
+    d = torch.cat([s, torch.ones(s.shape[:-1] + (1,), dtype=s.dtype, device=s.device)], -1)
+    return torch.diag_embed(d)
 
 
 def euler_mat(angle: torch.Tensor, order: str = "yxz") -> torch.Tensor:

@@ -79,8 +79,9 @@ def test_reader_reads_every_record(tmp_path, writer):
 
 
 def test_reader_refuses_bad_input(tmp_path):
-    """Out-of-range items and sizes, a file that is not a shard, and the
-    images of a JPEG shard (whose records still read as bytes) raise."""
+    """Out-of-range items and sizes, a file that is not a shard, the raw
+    batch read of a JPEG shard, and a JPEG record that does not decode
+    (its bytes still read as they are) raise."""
     path = _write(SRPackWriter, tmp_path / "a.srpack", _images(3))
     r = SRPackReader(path)
     with pytest.raises(IndexError):
@@ -102,9 +103,11 @@ def test_reader_refuses_bad_input(tmp_path):
     with SRPackReader(str(jpeg)) as rj:
         assert rj.read_record(8, 0) == b"\xff\xd8not-really-a-jpeg"
         with pytest.raises(ValueError, match="JPEG"):
+            rj.read_batch_raw(8, [0])
+        with pytest.raises(OSError):
             rj.decode(8, 0)
-    with pytest.raises(ValueError, match="JPEG"):
-        SRPackDataset(str(jpeg), 8)
+    with pytest.raises(OSError):
+        SRPackDataset(str(jpeg), 8).read_batch([0])
     with pytest.raises(ValueError, match="missing"):
         SRPackDataset(path, 32)
 

@@ -619,13 +619,42 @@ def _generator_ckpt(root):
     ("fid", ["--ckpt", "x", "--inception", "y", "--bfm", "b.mat"]),
     ("ppl", ["--ckpt", "x", "--bfm", "b.mat"]),
 ])
-def test_eval_clis_refuse_unported(tmp_path, capsys, cli, argv):
-    """An image folder (``calc_inception``) and ``--bfm`` are refused."""
+def test_eval_clis_refuse_unported(tiny_ckpt, tmp_path, capsys, cli, argv):
+    """What these CLIs refused before the face models and the image folders
+    were ported, they take now: ``calc_inception`` on a folder of the
+    shard's images writes the shard's statistics, and ``fid`` and ``ppl``
+    with ``--with_map --bfm`` render a BFM file's mesh and print finite
+    numbers."""
     import importlib
 
+    import scipy.io
+    from torch_face_models import bfm_dict
+
+    from stylerenderer_tpu_torch.data import SRPackReader
+    from stylerenderer_tpu_torch.utils.image import write_png
+
     mod = importlib.import_module(f"stylerenderer_tpu_torch.cli.{cli}")
-    argv = [str(tmp_path) if a == "DIR" else a for a in argv] + ["--device", "cpu"]
-    with pytest.raises(SystemExit):
-        mod.main(argv)
-    why = "image-folder data is not ported" if cli == "calc_inception" else mod.NOT_PORTED["bfm"]
-    assert why in capsys.readouterr().err
+    root, ckpt, shard = tiny_ckpt
+    if cli == "calc_inception":
+        folder = tmp_path / "faces"
+        folder.mkdir()
+        with SRPackReader(shard) as r:
+            for i in range(r.n_items):
+                write_png(str(folder / f"{i}.png"), r.decode(16, i))
+        stats = {}
+        for name, src in (("folder", str(folder)), ("shard", shard)):
+            out = str(tmp_path / f"{name}.pkl")
+            mod.main([src if a == "DIR" else a for a in argv]
+                     + ["--size", "16", "--batch", "3", "--device", "cpu", "--out", out])
+            stats[name] = j_fid.load_stats(out)
+        for a, b in zip(stats["folder"], stats["shard"]):
+            np.testing.assert_array_equal(a, b)
+        return
+    bfm = str(tmp_path / "bfm.mat")
+    scipy.io.savemat(bfm, bfm_dict(12, 24, 4, 2))
+    real = str(tmp_path / "real.pkl")
+    fid.save_stats(real, np.zeros(2048), np.eye(2048))
+    argv = [{"x": ckpt, "y": real, "b.mat": bfm}.get(a, a) for a in argv]
+    value = mod.main(argv + ["--with_map", "--n_sample", "3", "--batch", "2"] + TINY)
+    assert np.isfinite(value)
+    assert "not ported" not in capsys.readouterr().err

@@ -226,19 +226,29 @@ def _to(obj, device):
     return obj
 
 
-@pytest.mark.gpu
-def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
+def _in_float64(net: torch.nn.Module) -> torch.nn.Module:
+    """``net`` with its parameters and its compute type in float64."""
+    for m in net.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    return net.double()
+
+
+def _step_against_cpu(cuda, monkeypatch, card_d_float64: bool):
     """One train step (R1 and path both fire; K1 renders the pyramids) at
-    the same weights and draws on the card and on the CPU, TF32 off. The
-    card's step runs first and records each update's gradients and the
-    parameters it produced; the CPU's step then takes those parameters at
-    each update instead of its own Adam step (Adam's first step is about
+    the same weights and draws on the card and on the CPU, TF32 off, the
+    CPU's D in float64 and the card's in float64 (``card_d_float64``, with
+    cuDNN's deterministic algorithms) or float32. The card's step runs
+    first and records each update's gradients and the parameters it
+    produced; the CPU's step then takes those parameters at each update
+    instead of its own Adam step (Adam's first step is about
     ``lr * sign(g)``, which would turn rounding into parameter differences
     of ``lr``), so every loss and gradient is taken at the same parameters:
     metrics to 1e-4, each update's gradients to 1e-3 of each tensor's
     largest magnitude. K1 launches three times on the card."""
     import stylerenderer_tpu_torch.train.step as step_mod
     from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.train.state import make_optimizers
     from stylerenderer_tpu_torch.utils.config import TrainConfig
 
     cfg = TrainConfig(size=16, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
@@ -248,6 +258,10 @@ def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
     states = {"cpu": init_train_state(cfg, "cpu", seed=1), "cuda": init_train_state(cfg, cuda)}
     for name in ("g", "d", "g_ema"):
         getattr(states["cuda"], name).load_state_dict(getattr(states["cpu"], name).state_dict())
+    for dev, st in states.items():
+        if dev == "cpu" or card_d_float64:
+            _in_float64(st.d)
+        st.g_optim, st.d_optim = make_optimizers(cfg, st.g, st.d)
     draws = sample_draws(torch.Generator().manual_seed(2), cfg, face, 4, states["cpu"].g.n_latent)
     real = torch.rand(4, 3, 16, 16, generator=torch.Generator().manual_seed(3)) * 2 - 1
     adam = step_mod._adam_step
@@ -264,6 +278,9 @@ def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
             for p, q in zip(params, card[len(cpu) - 1][1]):
                 p.copy_(q)
 
+    if card_d_float64:
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+        monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -283,6 +300,27 @@ def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
         for i, (a, b) in enumerate(zip(gg, gc)):
             err, scale = float((a - b).abs().max()), float(b.abs().max())
             assert err <= 1e-3 * max(scale, 1e-30), (u, i, err, scale)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda, monkeypatch):
+    """The step with D in float64 on both sides (``_step_against_cpu``).
+
+    At this size the R1 gradient is ill-conditioned in float32: on the CPU
+    alone, float32 is 1.1e-2 of the largest off the float64 gradient for
+    ``final_conv``'s weight, and the parameters after the card's D update
+    differ between runs (``tests/torch_r1_conditioning.py``), so two
+    float32 orders of summation could not agree to 1e-3."""
+    _step_against_cpu(cuda, monkeypatch, card_d_float64=True)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_float32_matches_cpu_float64(cuda, monkeypatch):
+    """The card's step at training precision, D in float32, held against
+    the CPU's step with D in float64 (``_step_against_cpu``): the card's
+    float32 R1 gradient is well within 1e-3 of float64
+    (``tests/torch_r1_conditioning.py``)."""
+    _step_against_cpu(cuda, monkeypatch, card_d_float64=False)
 
 
 @pytest.mark.gpu
@@ -603,3 +641,91 @@ def test_cuda_train_step_with_heads(cuda):
     assert st.step == 2 and m["nonfinite_steps"] == 0
     for k in ("g", "sfs", "feature", "lmk"):
         assert np.isfinite(float(m[k])), k
+
+
+# ---- face models and alignment --------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("border", ["constant", "reflect"])
+def test_cuda_warp_affine_matches_cpu(cuda, border):
+    """The alignment warp on the card against the CPU: random similarities
+    on a non-square batch, to 1e-2 grey levels before rounding."""
+    from stylerenderer_tpu_torch.face3d.alignment import warp_affine
+
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randint(0, 256, (3, 3, 60, 80)).astype(np.float32))
+    M = []
+    for _ in range(3):
+        th, s = rng.uniform(-0.5, 0.5), rng.uniform(0.7, 1.3)
+        M.append([[s * np.cos(th), -s * np.sin(th), rng.uniform(-9, 9)],
+                  [s * np.sin(th), s * np.cos(th), rng.uniform(-9, 9)]])
+    card = warp_affine(img.to(cuda), np.asarray(M), (50, 70), border).cpu()
+    cpu = warp_affine(img, np.asarray(M), (50, 70), border)
+    assert card.shape == (3, 3, 50, 70)
+    assert float((card - cpu).abs().max()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["facewarehouse", "flame"])
+def test_cuda_face_models_match_cpu(cuda, kind):
+    """The blendshape and skinning models loaded on the card: the same
+    ``random_input`` for a CPU generator; at a moderate ``x`` (the
+    blendshape prior's own samples overflow its energy's ``exp`` in
+    float32, in the JAX package too), forwards to 1e-5 of the largest value
+    and gradients of the vertices and the prior with respect to ``x`` to
+    1e-4 (TF32 off)."""
+    from torch_face_models import facewarehouse_dict, flame_dict
+
+    from stylerenderer_tpu_torch.face3d import load_facewarehouse, load_flame
+
+    load, data = ((load_facewarehouse, facewarehouse_dict(20, 30, 12, 8)) if kind ==
+                  "facewarehouse" else (load_flame, flame_dict(20, 30, 20)))
+    flags = _tf32_off()
+    try:
+        res = []
+        for dev in ("cpu", cuda):
+            model, _ = load(data, device=dev)
+            drawn = model.random_input(4, torch.Generator().manual_seed(3))
+            assert drawn.device.type == torch.device(dev).type
+            x = torch.from_numpy(np.random.RandomState(3).randn(*drawn.shape).astype(np.float32))
+            x = (x * 0.5).to(dev).requires_grad_(True)
+            v = model(x)
+            cot = torch.randn(v.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+            loss = (v * cot).sum() + 0.1 * model.regulation(x)
+            (gx,) = torch.autograd.grad(loss, x)
+            res.append((drawn.cpu(), v.detach().cpu(), gx.cpu()))
+    finally:
+        _restore_tf32(flags)
+    (xc, vc, gc), (xg, vg, gg) = res
+    torch.testing.assert_close(xg, xc, rtol=0, atol=0)
+    assert float((vg - vc).abs().max()) <= 1e-5 * float(vc.abs().max())
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_bfm_k1_bitexact(cuda, tmp_path):
+    """A small BFM ``.mat`` through ``load_bfm`` on the card, posed, its
+    normals through K1: winners and values bit-equal to the plain version
+    at every level, one launch."""
+    import scipy.io
+    from torch_face_models import bfm_dict
+
+    from stylerenderer_tpu_torch.face3d import load_bfm
+
+    path = str(tmp_path / "bfm.mat")
+    scipy.io.savemat(path, bfm_dict(40, 60, 20, 6))
+    face, tri = load_bfm(path, device=cuda)
+    assert tri.device.type == "cuda" and tri.dtype == torch.int64
+    g = torch.Generator().manual_seed(5)
+    vert = random_apply_pose3D(g, face(face.random_input(4, g)))
+    norm = mesh_point_normal(vert, tri)
+    before = rasterize_winners_multi.launches
+    out = rasterize_winners_multi(vert, tri, 64, 5, attrs=norm)
+    torch.cuda.synchronize()
+    assert rasterize_winners_multi.launches == before + 1
+    ref = rasterize_winners_multi_ref(vert, tri, 64, 5, attrs=norm)
+    for k, ((va, wa), (vb, wb)) in enumerate(zip(out, ref)):
+        assert torch.equal(wa, wb), f"level {k}: winners differ"
+        assert torch.equal(va, vb), f"level {k}: values differ"
+    assert float((ref[0][1] >= 0).float().mean()) > 0.05

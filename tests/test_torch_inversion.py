@@ -523,11 +523,23 @@ def _cfg_dict():
 
 @pytest.mark.parametrize("flag", [["--bfm", "x"]])
 def test_cli_project_refuses_unported(tmp_path, capsys, flag):
+    """``--bfm``, refused before the BFM loader was ported, is taken now:
+    the fit runs on the BFM file's mesh and writes its meshes."""
+    import scipy.io
+    from torch_face_models import bfm_dict
+
     from stylerenderer_tpu_torch.cli import project as cli
 
-    with pytest.raises(SystemExit):
-        cli.main([str(tmp_path / "a.png")] + TINY_ARGS + flag)
-    assert cli.NOT_PORTED[flag[0][2:]] in capsys.readouterr().err
+    bfm = str(tmp_path / "bfm.mat")
+    scipy.io.savemat(bfm, bfm_dict(12, 24, 4, 2))
+    out = tmp_path / "recon"
+    res = cli.main([_photo(str(tmp_path / "a.png"))] + TINY_ARGS + [
+        {"x": bfm}.get(a, a) for a in flag] + ["--iters", "2", "--out", str(out)])
+    assert res["vertices"].shape == (1, 12 * 24, 3)
+    assert np.isfinite(res["loss_history"].numpy()).all()
+    with open(out / "mesh_000.obj") as f:
+        assert sum(line.startswith("v ") for line in f) == 12 * 24
+    assert "not ported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("vgg_weights", [False, True])

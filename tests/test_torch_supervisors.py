@@ -454,12 +454,35 @@ def test_cli_train_with_heads(shard, tmp_path, capsys):
     (["FOLDER"], "image-folder data is not ported"),
 ])
 def test_cli_train_still_refuses(shard, tmp_path, capsys, argv, why):
-    from stylerenderer_tpu_torch.cli.train import main
+    """``--profile_steps`` is still refused. ``--bfm`` and image folders,
+    refused with the messages ``why`` before the BFM loader and the folder
+    dataset were ported, train a step now: on the BFM file's mesh, and on
+    a folder of the shard's images."""
+    import scipy.io
+    from torch_face_models import bfm_dict
 
+    from stylerenderer_tpu_torch.cli.train import main
+    from stylerenderer_tpu_torch.data import SRPackReader
+    from stylerenderer_tpu_torch.utils.image import write_png
+
+    if argv == ["--profile_steps", "2"]:
+        with pytest.raises(SystemExit):
+            main([shard] + argv + TINY)
+        assert why in capsys.readouterr().err
+        return
     if argv == ["FOLDER"]:
-        argv = [str(tmp_path)]
+        folder = tmp_path / "faces"
+        folder.mkdir()
+        with SRPackReader(shard) as r:
+            for i in range(r.n_items):
+                write_png(str(folder / f"{i}.png"), r.decode(16, i))
+        argv = [str(folder)]
     else:
-        argv = [shard] + argv
-    with pytest.raises(SystemExit):
-        main(argv + TINY)
-    assert why in capsys.readouterr().err
+        bfm = str(tmp_path / "bfm.mat")
+        scipy.io.savemat(bfm, bfm_dict(12, 24, 4, 2))
+        argv = [shard, "--bfm", bfm]
+    out = tmp_path / "run"
+    state = main(argv + ["--iter", "1", "--batch", "2", "--log_every", "1", "--seed", "0",
+                         "--out_dir", str(out)] + TINY)
+    assert state.step == 1 and (out / "checkpoint" / "000001.pt").exists()
+    assert why not in capsys.readouterr().err
