@@ -43,6 +43,16 @@ entry points a user calls, and prints what it measured:
   falling), then as the init of a 20-step ``each`` fit at B=8 (K1 21
   times); ``cli.train --sfs --lmk --feat`` for 3 steps at B=16 and each
   kind of step with the heads timed beside phase 4a's;
+- the GAR at 1024 px (phase 4i): K1 at top 1024 (9 levels) and 512 (8)
+  with 32 px tiles on the production mesh at B=16, held level by level to
+  K2, to the plain version on one image and to the dense search, and to
+  its plain version on the training mesh; K2 at 1024^2, held to the plain
+  version on one production image and on the training mesh; ``GeneratorWithMap(1024, 512, 8)`` in bf16 (``each``,
+  ``downsample`` fused and unfused) at the largest batch that fits;
+  ``remat`` against no remat (images equal, gradients to 1e-4, peak
+  memory); ``cli.generate`` at its default 1024 px; ``cli.train`` in bf16
+  with ``--profile_steps 2`` (its trace names K1's kernel) and each kind
+  of step timed, and with ADA (``p`` moving);
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -110,6 +120,13 @@ FLAME_MESH, FLAME_SHAPE = (51, 98), 400     # 4,998 vertices; 300 shape + 100 ex
 PHOTOS, PIPE_STEPS, PIPE_FID, PIPE_PPL = 32, 2, (64, 32), (16, 16)
 # the GAR at full width: phase 4h's models and CLIs
 GAR = dict(size=256, latent=512, n_mlp=8, channel_multiplier=2)
+# phase 4i: the GAR at 1024 px (the reference channel table's top): K1's
+# pyramid, K2's image, the forwards' timed calls and the batches tried in
+# turn (the largest that fits is kept), remat's batch (its path term takes
+# half, as the trainer's path_batch_shrink), the bf16 and ADA runs' steps
+HR_TOP, HR_LEVELS, HR_TILE = 1024, 9, 32
+HR_FORWARDS, HR_BATCHES, REMAT_BATCH = 3, (16, 4, 1), 4
+ADA_STEPS, ADA_ARGS = 8, ("--ada_every", "4", "--ada_target", "0.1", "--ada_length", "2000")
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -254,8 +271,8 @@ def k2_bound(torch, dat, starts, h, w):
     return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
 
 
-def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
-    """K1 at these shapes (top TOP, tile TILE, values of ``norm`` or
+def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=TOP, tile=TILE):
+    """K1 at these shapes (top ``top``, tile ``tile``, values of ``norm`` or
     winners only): the card's binning held against the plain binning (keys
     and starts equal), then timed with CUDA events over many launches
     after a warm-up: the plain binning, the card's binning (its launches
@@ -271,8 +288,8 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
     )
 
     n_attr = 0 if norm is None else norm.shape[-1]
-    dat, ids, starts = build_bins_multi(vert, tri, TOP, n_levels, False, EPS, TILE, attrs=norm)
-    rows, cstarts, slots, keys = launch_bin_multi(vert, tri, TOP, n_levels, False, EPS, TILE,
+    dat, ids, starts = build_bins_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm)
+    rows, cstarts, slots, keys = launch_bin_multi(vert, tri, top, n_levels, False, EPS, tile,
                                                   attrs=norm)
     if not torch.equal(cstarts, starts):
         raise AssertionError(f"K1 {n_levels} levels: the card's starts differ from the plain "
@@ -281,18 +298,18 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins):
     if not np.array_equal(keys.cpu().numpy(), want):
         raise AssertionError(f"K1 {n_levels} levels: the card's keys differ from the plain "
                              "binning's")
-    plain_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, TOP, n_levels, False,
-                                                            EPS, TILE, attrs=norm), 5)
+    plain_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, top, n_levels, False,
+                                                            EPS, tile, attrs=norm), 5)
     def bin_multi():
-        return launch_bin_multi(vert, tri, TOP, n_levels, False, EPS, TILE, attrs=norm)
+        return launch_bin_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm)
     bins_ms = graph_ms(torch, bin_multi, 50)
     bins_call_ms = cuda_ms(torch, bin_multi, 50)
-    ms = cuda_ms(torch, lambda: launch_rasterize_multi(rows, cstarts, slots, TOP, n_levels, TILE,
+    ms = cuda_ms(torch, lambda: launch_rasterize_multi(rows, cstarts, slots, top, n_levels, tile,
                                                        n_attr, False, EPS), 50)
-    bound_ms, by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, TOP, n_levels,
+    bound_ms, by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, top, n_levels,
                                                          n_attr)
     shape = (ctypes.c_int * 6)()
-    rc = _build.library("multi").sr_rasterize_multi_shape(TOP, n_levels, TILE, n_attr, shape)
+    rc = _build.library("multi").sr_rasterize_multi_shape(top, n_levels, tile, n_attr, shape)
     if rc != 0:
         raise AssertionError(f"K1 launch shape query failed: {rc}")
     del dat, ids, rows, slots
@@ -433,11 +450,71 @@ def profile_step(torch, fn, top_n: int = 8):
             "events": sum(e.count for e in on_device), "by_op": by_op}
 
 
+def real_batch(torch, np, shard, dev):
+    """The first BATCH images of the 256 px ``shard`` as a training batch."""
+    from stylerenderer_tpu_torch.data import SRPackDataset, to_train_tensor
+
+    ds = SRPackDataset(shard, 256)
+    real = to_train_tensor(ds.read_batch(np.arange(BATCH)), np.random.default_rng(0)).to(dev)
+    ds.reader.close()
+    return real
+
+
+def time_step_kinds(torch, state, cfg, real, face, tri, run_path, label, heads=(),
+                    note=None):
+    """Each kind of step alone on ``state`` (with the supervisor ``heads``
+    when given): timed (host clock, each step ends in its finite-flag sync;
+    mean of TRAIN_REPS after one), its peak memory, counted (K1 2 or 3
+    times) and profiled once (idle share, K1's share, the top host ops)
+    -> ms by kind; fails on a screened step. ``note(kind, metrics)`` adds
+    to each kind's line."""
+    from stylerenderer_tpu_torch.train import sample_draws, train_step
+
+    step_ms = {}
+    for kind, at in STEP_KINDS.items():
+        def one(at=at):
+            state.step = at
+            draws = sample_draws(state.generator, cfg, face, BATCH, state.g.n_latent, heads)
+            return train_step(state, real, draws, cfg, face, tri, heads)
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_REPS):
+            m = one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+        kind_peak = torch.cuda.max_memory_allocated()
+        _, counts = run_path(f"{label}, {kind}", one)
+        n_k1 = 2 if kind == "plain" else 3
+        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0}:
+            raise AssertionError(f"{label} ({kind}): launches {counts}")
+        prof = profile_step(torch, one)
+        wall, busy, n_events = prof["wall_ms"], prof["busy_ms"], prof["events"]
+        k1_ms = prof["kernel_ms"] + prof["bins_ms"]
+        if state.nonfinite_count:
+            raise AssertionError(f"{label} ({kind}): {state.nonfinite_count} non-finite steps")
+        step_ms[kind] = ms
+        k1_share = f"{k1_ms / busy:.4f}" if busy else "not measured"
+        # device events that overlap sum to more than the window they fill
+        idle = (f"idle share {1 - busy / wall:.3f}" if busy <= wall else
+                "idle share not measured: the device events' times overlap")
+        log(f"{label}, {kind}: {ms:.1f} ms (host clock, mean of {TRAIN_REPS}), "
+            f"{BATCH * 1e3 / ms:.1f} images/s; peak memory {kind_peak / 2 ** 30:.2f} GiB; "
+            f"K1 launches {n_k1}; profiled once: device events {busy:.1f} ms in {wall:.1f} ms "
+            f"host clock ({idle}), {n_events} device events, K1 and "
+            f"its binning {k1_ms:.3f} ms of device time (share {k1_share})"
+            + (f"; {note(kind, m)}" if note else ""))
+        for t, n, name in prof["by_op"]:
+            log(f"    {t:9.3f} ms  {t / busy:6.1%}  {n:5d} calls  {name}")
+    return step_ms
+
+
 def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
     """GAR training on ``shard`` through the CLI, then each kind of step
     timed, counted and profiled alone; fails loudly on any check."""
     from stylerenderer_tpu_torch.cli.train import main as train_main
-    from stylerenderer_tpu_torch.data import SRPackDataset, to_train_tensor
     from stylerenderer_tpu_torch.train import sample_draws, train_step
     from stylerenderer_tpu_torch.utils.config import TrainConfig
 
@@ -488,13 +565,8 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
             "rasterize_single": 0}  # + 1: the EMA sample grid
     if counts != want:
         raise AssertionError(f"train path: launches {counts}, expected {want}")
-    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    if [r["step"] for r in rows] != list(range(TRAIN_STEPS)):
-        raise AssertionError(f"train path: logged steps {[r['step'] for r in rows]}")
+    rows = metrics_rows(out, TRAIN_STEPS, "train path")
     for r, kind in zip(rows, kinds):
-        if not all(np.isfinite(v) for v in r.values()) or r["nonfinite_steps"] != 0:
-            raise AssertionError(f"train path: step {r['step']}: {r}")
         if (r["r1"] != 0) != (kind == "R1 + path") or (r["path"] != 0) != (kind != "plain"):
             raise AssertionError(f"train path: step {r['step']} ({kind}) ran the wrong terms: {r}")
     for name in ("checkpoint/%06d.pt" % TRAIN_STEPS, "sample/%06d.png" % (TRAIN_STEPS - 1),
@@ -513,46 +585,10 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
             f"g {r['g']:.4f}, r1 {r['r1']:.4f}, path {r['path']:.4f}, path length "
             f"{r['path_length']:.4f}")
 
-    # each kind of step alone, on the trained state: timed (host clock,
-    # each step ends in its finite-flag sync), counted, profiled
+    # each kind of step alone, on the trained state
     cfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4)
-    ds = SRPackDataset(shard, 256)
-    real = to_train_tensor(ds.read_batch(np.arange(BATCH)), np.random.default_rng(0)).to(dev)
-    ds.reader.close()
-    step_ms = {}
-    for kind, at in STEP_KINDS.items():
-        def one(at=at):
-            state.step = at
-            draws = sample_draws(state.generator, cfg, face, BATCH, state.g.n_latent)
-            return train_step(state, real, draws, cfg, face, tri)
-
-        one()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_REPS):
-            one()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
-        kind_peak = torch.cuda.max_memory_allocated()
-        _, counts = run_path(f"train step, {kind}", one)
-        n_k1 = 2 if kind == "plain" else 3
-        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0}:
-            raise AssertionError(f"train step ({kind}): launches {counts}")
-        prof = profile_step(torch, one)
-        wall, busy, n_events = prof["wall_ms"], prof["busy_ms"], prof["events"]
-        k1_ms = prof["kernel_ms"] + prof["bins_ms"]
-        if state.nonfinite_count:
-            raise AssertionError(f"train step ({kind}): {state.nonfinite_count} non-finite steps")
-        step_ms[kind] = ms
-        k1_share = f"{k1_ms / busy:.4f}" if busy else "not measured"
-        log(f"train step, {kind}: {ms:.1f} ms (host clock, mean of {TRAIN_REPS}), "
-            f"{BATCH * 1e3 / ms:.1f} images/s; peak memory {kind_peak / 2 ** 30:.2f} GiB; "
-            f"K1 launches {n_k1}; profiled once: device busy {busy:.1f} ms of {wall:.1f} ms "
-            f"host clock (idle share {1 - busy / wall:.3f}), {n_events} device events, K1 and "
-            f"its binning {k1_ms:.3f} ms of device time (share {k1_share})")
-        for t, n, name in prof["by_op"]:
-            log(f"    {t:9.3f} ms  {t / busy:6.1%}  {n:5d} calls  {name}")
+    real = real_batch(torch, np, shard, dev)
+    step_ms = time_step_kinds(torch, state, cfg, real, face, tri, run_path, "train step")
     # what the finite screen costs a plain step (the copy it restores from,
     # the max-abs norms and the one host synchronisation): the same steps
     # with it taken out, in turns with it in
@@ -889,15 +925,13 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
     shard, then each kind of step with the heads timed and counted. Fails
     loudly on any check."""
     from stylerenderer_tpu_torch.cli.train import main as train_main
-    from stylerenderer_tpu_torch.data import SRPackDataset, to_train_tensor
     from stylerenderer_tpu_torch.inversion import ProjectorConfig, make_projector
     from stylerenderer_tpu_torch.models import GeneratorWithMap, Regressor
     from stylerenderer_tpu_torch.supervisors import (
         InceptionResnetV1, PFLDInference, ResNetUNet, make_extra_heads, random_stand_in_,
     )
     from stylerenderer_tpu_torch.train import (
-        init_regressor_state, make_regressor_fn, regressor_step, sample_draws,
-        sample_regressor_batch, train_step,
+        init_regressor_state, make_regressor_fn, regressor_step, sample_regressor_batch,
     )
     from stylerenderer_tpu_torch.utils.checkpoint import load_generator_weights
     from stylerenderer_tpu_torch.utils.config import TrainConfig
@@ -1038,35 +1072,11 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
             f"sfs {r['sfs']:.5f}, feature {r['feature']:.6f}, lmk {r['lmk']:.5f}")
     heads = make_extra_heads(1, sfs=True, lmk=True, feat=True, image_size=256, device=dev)
     tcfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4)
-    ds = SRPackDataset(shard, 256)
-    real = to_train_tensor(ds.read_batch(np.arange(BATCH)), np.random.default_rng(0)).to(dev)
-    ds.reader.close()
-    for kind, at in STEP_KINDS.items():
-        def one(at=at):
-            tstate.step = at
-            draws = sample_draws(tstate.generator, tcfg, synth_mesh[0], BATCH,
-                                 tstate.g.n_latent, heads)
-            return train_step(tstate, real, draws, tcfg, *synth_mesh, heads)
-
-        one()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_REPS):
-            m = one()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
-        kind_peak = torch.cuda.max_memory_allocated()
-        _, counts = run_path(f"train heads step, {kind}", one)
-        n_k1 = 2 if kind == "plain" else 3
-        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0} or tstate.nonfinite_count:
-            raise AssertionError(f"train heads step ({kind}): launches {counts}, "
-                                 f"{tstate.nonfinite_count} non-finite steps")
-        log(f"train heads step, {kind}: {ms:.1f} ms (host clock, mean of {TRAIN_REPS}), "
-            f"{BATCH * 1e3 / ms:.1f} images/s, against {plain_step_ms[kind]:.1f} ms without "
-            f"the heads (phase 4a); peak memory {kind_peak / 2 ** 30:.2f} GiB; K1 launches "
-            f"{n_k1}; sfs {float(m['sfs']):.5f}, feature {float(m['feature']):.6f}, lmk "
-            f"{float(m['lmk']):.5f}")
+    time_step_kinds(torch, tstate, tcfg, real_batch(torch, np, shard, dev), *synth_mesh,
+                    run_path, "train heads step", heads,
+                    lambda kind, m: (f"against {plain_step_ms[kind]:.1f} ms without the heads "
+                                     f"(phase 4a); sfs {float(m['sfs']):.5f}, feature "
+                                     f"{float(m['feature']):.6f}, lmk {float(m['lmk']):.5f}"))
     log(f"phase 4g: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
@@ -1493,6 +1503,390 @@ def face_models_phase(torch, np, dev, smi, work, run_path, max_err, keys_of_bins
     return {"k1": k1_rows, "k2": (k2m, k2b_ms, k2_by, k2_plain_ms), "train_ms": train_ms}
 
 
+def metrics_rows(out, steps, what):
+    """The logged rows of a ``cli.train`` run in ``out``: one per step,
+    every metric finite, no step screened out."""
+    import math
+
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(steps)):
+        raise AssertionError(f"{what}: logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if not all(math.isfinite(v) for v in r.values()) or r["nonfinite_steps"] != 0:
+            raise AssertionError(f"{what}: step {r['step']}: {r}")
+    return rows
+
+
+def highres_phase(torch, np, dev, smi, work, shard, face, tri, synth_mesh, run_path, max_err,
+                  keys_of_bins):
+    """Phase 4i: the GAR at 1024 px. K1 at top 1024 (9 levels) and 512 (8),
+    tile 32, on the production mesh at B=16, held level by level to K2 and,
+    on image 0, to the plain version (the levels of 32 px and up) and to
+    the dense search (below), its values to ``_interp_from_win`` over those
+    winners, and to its plain version on the training mesh at B=1, then
+    timed beside its bound; K2 at 1024^2, tiles 8, 16 and 32 agreeing at
+    B=16, equal to the plain version on image 0 and on the training mesh
+    at B=1, timed beside its bound; the 1024 px GAR
+    in bf16 (``each``, ``downsample`` fused and unfused) at the largest
+    batch of HR_BATCHES that fits, timed, split, profiled, its fused and
+    unfused pyramids equal; ``remat`` against no remat (f32, TF32 off): the
+    same images and gradients, peak memory and time of each;
+    ``cli.generate`` at its defaults; ``cli.train`` in bf16 with
+    ``--profile_steps 2`` and each kind of step timed, and with ADA.
+    Returns K1's and K2's 1024 px measurements; fails loudly."""
+    from PIL import Image
+
+    from stylerenderer_tpu_torch.cli.generate import main as generate_main
+    from stylerenderer_tpu_torch.cli.train import main as train_main
+    from stylerenderer_tpu_torch.face3d import mesh_point_normal, random_apply_pose3D
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+    from stylerenderer_tpu_torch.ops.rasterize import (
+        _interp_from_win, _triangle_table, rasterize_winners,
+    )
+    from stylerenderer_tpu_torch.ops.rasterize_multi import (
+        rasterize_winners_multi, rasterize_winners_multi_ref,
+    )
+    from stylerenderer_tpu_torch.ops.rasterize_single import (
+        build_bins, card_tile, rasterize_winners_single, rasterize_winners_single_ref,
+    )
+    from stylerenderer_tpu_torch.train import path_lengths_multi
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(21)
+    vert = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+    norm = mesh_point_normal(vert, tri)
+    synth_face, synth_tri = synth_mesh
+    tv = random_apply_pose3D(g, synth_face(synth_face.random_input(1, g)))
+    tn = mesh_point_normal(tv, synth_tri)
+
+    # 1. the plain version (the dense search) on image 0 of the batch at each
+    # size of 32 px and up: the 1024^2 image of K2 and K1's levels at both
+    # tops are held to it below (all 16 images would take minutes)
+    dense, dense_ms = {}, {}
+    for k in range(HR_LEVELS):
+        s = HR_TOP >> k
+        if s >= HR_TILE:
+            dense[s], dense_ms[s] = once_ms(torch, lambda: rasterize_winners_single_ref(
+                vert[:1], tri, s, s))
+    log(f"plain version (dense search), production mesh, image 0: "
+        + ", ".join(f"{s} px {t:.1f} ms" for s, t in dense_ms.items()) + f" ({smi})")
+
+    # 2. K1 at top 1024 and 512, tile 32, C=3: level by level against K2
+    # at B=16 and the plain version on image 0 (levels of 32 px and up)
+    # and the dense search at B=16 (below), then against the plain version
+    # on the training mesh at B=1
+    k1_hr = {}
+    for top, n_levels in ((HR_TOP, HR_LEVELS), (HR_TOP // 2, HR_LEVELS - 1)):
+        out = rasterize_winners_multi(vert, tri, top, n_levels, attrs=norm)
+        tbl = _triangle_table(vert, norm, tri)
+        witness = []
+        for k, (val, win) in enumerate(out):
+            s = top >> k
+            if s >= HR_TILE:
+                ref_w = rasterize_winners_single(vert, tri, s, s)
+                compare_wins(win[:1], dense[s], f"K1 top {top}, level {s} px, image 0, "
+                                                "against the plain version")
+                by = f"K2 (tile {card_tile(s, s)}) and image 0 the plain version"
+            else:
+                ref_w, by = rasterize_winners(vert, tri, s, s), "dense"
+            compare_wins(win, ref_w, f"K1 top {top}, level {s} px, against {by}")
+            ref_v = _interp_from_win(vert, norm, tri, win, s, s, False, EPS, tbl=tbl)
+            if not torch.equal(val, ref_v):
+                raise AssertionError(f"K1 top {top}, level {s} px: values differ from "
+                                     f"_interp_from_win by {float((val - ref_v).abs().max())}")
+            witness.append(f"{s} px {by}")
+            del ref_w, ref_v
+        del out, tbl
+        ref, plain_ms = once_ms(torch, lambda: rasterize_winners_multi_ref(
+            tv, synth_tri, top, n_levels, attrs=tn, tile=HR_TILE))
+        max_err["rasterize_multi"] = max(max_err["rasterize_multi"], compare_multi(
+            rasterize_winners_multi(tv, synth_tri, top, n_levels, attrs=tn), ref, True,
+            f"K1 top {top}, training mesh B=1"))
+        if top == HR_TOP:
+            train_ref = ref[0][1]  # the plain version's 1024^2 winners, for K2
+        del ref
+        m = k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=top, tile=HR_TILE)
+        m["plain_ms"] = plain_ms
+        k1_hr[top] = m
+        log(f"check: K1 top {top}, {n_levels} levels, tile {HR_TILE}, C=3, production mesh "
+            f"B={BATCH}: winners bit-equal level by level ({'; '.join(witness)}), values "
+            f"bit-equal to _interp_from_win over them; on the training mesh at B=1 bit-equal to "
+            f"the plain version ({plain_ms:.1f} ms once)")
+        log(k1_report(f"K1 rasterize_multi at top {top}, {n_levels} levels, tile {HR_TILE}, "
+                      f"B={BATCH}, C=3 ({smi})", m))
+
+    # 3. K2 at 1024^2: at B=16 on the production mesh the tiles agree and
+    # image 0 equals the plain version; on the training mesh at B=1 every
+    # tile equals the plain version; timed beside its bound
+    k2_hr = {t: k2_measure(torch, np, vert, tri, HR_TOP, HR_TOP, t, keys_of_bins)
+             for t in (8, 16, 32)}
+    outs = [rasterize_winners_single(vert, tri, HR_TOP, HR_TOP, tile=t) for t in (8, 16, 32)]
+    for t, o in zip((8, 16, 32), outs):
+        max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+            o[:1], dense[HR_TOP], f"K2 {HR_TOP}^2 tile {t}, image 0, against the plain version"))
+        if t != 8:
+            compare_wins(o, outs[0], f"K2 {HR_TOP}^2 tile {t} against tile 8")
+        max_err["rasterize_single"] = max(max_err["rasterize_single"], compare_wins(
+            rasterize_winners_single(tv, synth_tri, HR_TOP, HR_TOP, tile=t), train_ref,
+            f"K2 {HR_TOP}^2 tile {t}, training mesh B=1, against the plain version"))
+    covered = float((outs[0] >= 0).float().mean())
+    del outs, train_ref
+    tile = card_tile(HR_TOP, HR_TOP)
+    dat, _, starts = build_bins(vert, tri, HR_TOP, HR_TOP, False, EPS, tile)
+    k2b_ms, k2_by, nbytes, ops, pairs, n_valid = k2_bound(torch, dat, starts, HR_TOP, HR_TOP)
+    del dat, starts
+    k2_hr[tile].update(bound_ms=k2b_ms, bound_by=k2_by, plain_ms_image0=dense_ms[HR_TOP])
+    del dense
+    log(f"check: K2 {HR_TOP}^2 at tiles 8, 16 and 32: B={BATCH} on the production mesh, the "
+        f"tiles bit-equal and image 0 bit-equal to the plain version "
+        f"({dense_ms[HR_TOP]:.1f} ms once for the image); B=1 on the training mesh, bit-equal "
+        f"to the plain version")
+    log(k2_report(f"K2 on the production mesh, {HR_TOP}^2, B={BATCH} ({smi})", k2_hr)
+        + f"; bound at tile {tile} (the card path's) {k2b_ms:.4f} ms by "
+        f"{k2_by} ({nbytes} bytes, {ops} f32 ops, {pairs} bbox pairs, {n_valid} valid "
+        f"triangles); covered {covered:.3f}")
+
+    # 4. the 1024 px GAR in bf16: each, downsample fused and unfused
+    gen = GeneratorWithMap(HR_TOP, 512, 8, channel_multiplier=2, dtype=torch.bfloat16, seed=0,
+                           device=dev).eval()
+    modes = (("each", True), ("downsample", True), ("downsample", False))
+
+    def inputs(b, n):
+        res = []
+        for _ in range(n):
+            v = random_apply_pose3D(g, face(face.random_input(b, g)))
+            res.append((torch.randn(b, 512, generator=g).to(dev),
+                        (v, mesh_point_normal(v, tri), tri)))
+        return res
+
+    hr_batch = None
+    for b in HR_BATCHES:
+        try:
+            with torch.no_grad():
+                z, mesh = inputs(b, 1)[0]
+                for mode, fused in modes:
+                    gen.pyramid_mode, gen.fused_pyramid = mode, fused
+                    gen([z], mesh)
+                torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            log(f"1024 px GAR: B={b} does not fit in the card's memory")
+            torch.cuda.empty_cache()
+            continue
+        hr_batch = b
+        break
+    if hr_batch is None:
+        raise AssertionError(f"1024 px GAR: none of the batches {HR_BATCHES} fits")
+    for mode, fused in modes:
+        gen.pyramid_mode, gen.fused_pyramid = mode, fused
+        name = f"1024 {mode}{'' if fused else ' unfused'}"
+        batches = inputs(hr_batch, HR_FORWARDS)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            images, counts = run_path(name, lambda: [gen([z], m)[0] for z, m in batches])
+            elapsed = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check_launches(counts, {"rasterize_multi": HR_FORWARDS if fused else 0,
+                                    "rasterize_single": 0 if fused else HR_FORWARDS}, name)
+            for img in images:
+                if (tuple(img.shape) != (hr_batch, 3, HR_TOP, HR_TOP)
+                        or not bool(torch.isfinite(img.float()).all())):
+                    raise AssertionError(f"{name}: bad image {tuple(img.shape)}")
+            std = float(images[-1].float().std())
+            del images
+            z, mesh = batches[-1]
+            latent = gen.get_latent(z)[:, None, :].repeat(1, gen.n_latent, 1)
+            maps = gen.normal_pyramid(mesh)
+            pyr_ms = cuda_ms(torch, lambda: gen.normal_pyramid(mesh), 3)
+            syn_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps), 3)
+            fwd_ms = cuda_ms(torch, lambda: gen([z], mesh), 3)
+            del maps
+        log(f"{name}: GeneratorWithMap(1024, 512, 8, channel_multiplier=2) bf16, "
+            f"B={hr_batch}, {HR_FORWARDS} forwards in {elapsed:.4f} s: "
+            f"{hr_batch * HR_FORWARDS / elapsed:.2f} renders/s (host clock); launches {counts}; "
+            f"peak memory {peak / 2 ** 30:.2f} GiB; split (CUDA events): normal pyramid "
+            f"{pyr_ms:.3f} ms, synthesis {syn_ms:.3f} ms, whole forward {fwd_ms:.3f} ms; "
+            f"image std {std:.4f} ({smi})")
+        log(f"{name}, profiled:")
+        profile_forwards(torch, gen, batches)
+    # the fused pyramids bit-equal to the unfused ones
+    z, mesh = inputs(hr_batch, 1)[0]
+    with torch.no_grad():
+        for mode in ("each", "downsample"):
+            gen.pyramid_mode = mode
+            gen.fused_pyramid = True
+            fused_maps = gen.normal_pyramid(mesh)
+            gen.fused_pyramid = False
+            for k, (a, b) in enumerate(zip(fused_maps, gen.normal_pyramid(mesh))):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"1024 {mode}: level {k}: fused and unfused pyramids "
+                                         "differ")
+            del fused_maps
+    log(f"check: 1024 px normal pyramids (each: K1 fused against K1 winners with the gather "
+        f"interpolation, rasterize_pyramid; downsample: K1 at one level against K2), fused "
+        f"and unfused bit-equal at all {gen.log_size - 1} levels, B={hr_batch}")
+    del gen
+    torch.cuda.empty_cache()
+
+    # 5. remat against no remat: f32, TF32 off and deterministic cuDNN, the
+    # noise strengths at 0.1 and the noise drawn from one card generator
+    # seed, an image loss at B=4 and a path-length double backward at B=2
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        rgen = GeneratorWithMap(HR_TOP, 512, 8, channel_multiplier=2, seed=0, device=dev)
+        with torch.no_grad():
+            for mod in rgen.modules():
+                if type(mod).__name__ == "NoiseInjection":
+                    mod.weight.fill_(0.1)
+        params = list(rgen.parameters())
+        z, mesh = inputs(REMAT_BATCH, 1)[0]
+        pb = REMAT_BATCH // 2
+        probe = torch.randn(pb, 3, HR_TOP, HR_TOP, generator=g).to(dev)
+        with torch.no_grad():
+            maps = [m[:pb] for m in rgen.normal_pyramid(mesh)]
+
+        def image_and_grads():
+            """-> (image, gradients of both terms, path length, and per
+            term: host-clock ms to a sync, peak memory)."""
+            rng = torch.Generator(dev).manual_seed(7)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            img = rgen([z], mesh, generator=rng)[0]
+            grads = torch.autograd.grad(img.square().mean(), params, allow_unused=True,
+                                        materialize_grads=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            peak_img = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            latent = rgen.get_latent(z[:pb])[:, None, :].repeat(1, rgen.n_latent, 1)
+            pl = path_lengths_multi(
+                lambda lat, *m: rgen.synthesize(lat, list(m), generator=rng), probe,
+                (latent, *maps))
+            pgrads = torch.autograd.grad(pl.mean(), params, allow_unused=True,
+                                         materialize_grads=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            return (img.detach(), [a + b for a, b in zip(grads, pgrads)],
+                    float(pl.detach().mean()), (t1 - t0) * 1e3, peak_img, (t2 - t1) * 1e3,
+                    torch.cuda.max_memory_allocated())
+
+        remat = {}
+        for on in (False, True):
+            rgen.remat = on
+            image_and_grads()  # warm-up
+            remat[on] = image_and_grads()
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    (img0, g0, pl0, *cost0), (img1, g1, pl1, *cost1) = remat[False], remat[True]
+    if not torch.equal(img1, img0):
+        raise AssertionError(f"remat: images differ by {float((img1 - img0).abs().max())}")
+    rel = 0.0
+    for i, (a, b) in enumerate(zip(g1, g0)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=f"remat: parameter {i}")
+        rel = max(rel, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    if not cost1[1] < cost0[1]:
+        raise AssertionError(f"remat: the image loss's peak memory {cost1[1]} is not below "
+                             f"{cost0[1]}")
+
+    def cost(c):
+        return (f"image loss {c[0]:.1f} ms, peak {c[1] / 2 ** 30:.2f} GiB; path term "
+                f"{c[2]:.1f} ms, peak {c[3] / 2 ** 30:.2f} GiB")
+
+    log(f"remat: GeneratorWithMap(1024, 512, 8, channel_multiplier=2) f32 (TF32 off, "
+        f"deterministic cuDNN), image loss at B={REMAT_BATCH} + path length at B={pb} (double "
+        f"backward), noise from one card generator seed: images equal, path length "
+        f"{pl0:.6f} / {pl1:.6f}, every gradient within rtol 1e-4 (largest difference "
+        f"{rel:.3e} of its tensor's largest magnitude); without remat: {cost(cost0)}; with "
+        f"remat: {cost(cost1)} (host clock to a sync; {smi})")
+    del rgen, params, maps, probe, remat, g0, g1, img0, img1
+    torch.cuda.empty_cache()
+
+    # 6. cli.generate at its defaults (1024 px): the GAR, with truncation,
+    # and the unconditioned Generator
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, n_k1 in (("cli generate 1024", ["--with_map"], 1),
+                                 ("cli generate 1024 truncation",
+                                  ["--with_map", "--truncation", "0.7"], 1),
+                                 ("cli generate 1024 generator", [], 0)):
+            out = os.path.join(tmp, name.replace(" ", "_"))
+            t0 = time.perf_counter()
+            paths, counts = run_path(name, lambda: generate_main(argv + ["--out", out]))
+            check_launches(counts, {"rasterize_multi": n_k1, "rasterize_single": 0}, name)
+            if len(paths) != 1 or Image.open(paths[0]).size != (HR_TOP, HR_TOP):
+                raise AssertionError(f"{name}: wrote {paths}")
+            log(f"cli: generate {' '.join(argv)} (its default --size {HR_TOP}): "
+                f"{time.perf_counter() - t0:.1f} s, launches {counts}, PNG {HR_TOP} x {HR_TOP}")
+
+    # 7. training in bf16 with the profiler window, then each kind of step;
+    # training with ADA
+    out = os.path.join(work, "train_bf16")
+    t0 = time.perf_counter()
+    state, counts = run_path("train bf16", lambda: train_main([
+        shard, "--iter", str(TRAIN_STEPS), "--batch", str(BATCH), "--d_reg_every", "16",
+        "--g_reg_every", "4", "--log_every", "1", "--sample_every", str(TRAIN_STEPS),
+        "--ckpt_every", str(TRAIN_STEPS), "--seed", "0", "--compute_dtype", "bfloat16",
+        "--profile_steps", "2", "--out_dir", out]))
+    train_s = time.perf_counter() - t0
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(TRAIN_STEPS)]
+    check_launches(counts, {"rasterize_multi": sum(2 if k == "plain" else 3 for k in kinds) + 1,
+                            "rasterize_single": 0}, "train bf16")
+    rows = metrics_rows(out, TRAIN_STEPS, "train bf16")
+    if state.g.dtype != torch.bfloat16 or state.d.dtype != torch.bfloat16:
+        raise AssertionError("train bf16: the models do not compute in bf16")
+    trace = os.path.join(out, "profile", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    k1_events = sum(1 for e in events if "rasterize_multi_kernel" in e.get("name", ""))
+    if not {"train_step 1", "train_step 2"} <= names or "train_step 0" in names or not k1_events:
+        raise AssertionError(f"train bf16: the trace of steps 1-2 lacks a step or K1 "
+                             f"({k1_events} K1 events)")
+    log(f"train bf16: cli.train --compute_dtype bfloat16 --profile_steps 2, B={BATCH}, "
+        f"{TRAIN_STEPS} steps in {train_s:.1f} s; launches {counts}; the trace "
+        f"({os.path.getsize(trace) / 2 ** 20:.1f} MiB, {len(events)} events) holds steps 1 "
+        f"and 2 and {k1_events} K1 kernel events (rasterize_multi_kernel)")
+    for r, kind in zip(rows, kinds):
+        log(f"  step {r['step']} ({kind}): {r['step_ms']:.1f} ms host clock; d {r['d']:.4f}, "
+            f"g {r['g']:.4f}, r1 {r['r1']:.4f}, path {r['path']:.4f}")
+    cfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4, compute_dtype="bfloat16")
+    real = real_batch(torch, np, shard, dev)
+    bf16_ms = time_step_kinds(torch, state, cfg, real, *synth_mesh, run_path, "train bf16 step")
+    cycle = (bf16_ms["R1 + path"] + 3 * bf16_ms["path"] + 12 * bf16_ms["plain"]) / 16
+    log(f"train bf16: {cycle:.1f} ms per step over the 16-step cycle, "
+        f"{BATCH * 1e3 / cycle:.1f} images/s ({smi})")
+    del state
+
+    out = os.path.join(work, "train_ada")
+    t0 = time.perf_counter()
+    _, counts = run_path("train ada", lambda: train_main([
+        shard, "--iter", str(ADA_STEPS), "--batch", str(BATCH), "--augment", *ADA_ARGS,
+        "--log_every", "1", "--sample_every", str(10 * ADA_STEPS), "--seed", "0",
+        "--out_dir", out]))
+    ada_s = time.perf_counter() - t0
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(ADA_STEPS)]
+    check_launches(counts, {"rasterize_multi": sum(2 if k == "plain" else 3 for k in kinds),
+                            "rasterize_single": 0}, "train ada")
+    rows = metrics_rows(out, ADA_STEPS, "train ada")
+    if not max(r["ada_p"] for r in rows) > 0:
+        raise AssertionError(f"train ada: p stayed 0 ({rows})")
+    log(f"train ada: cli.train --augment {' '.join(ADA_ARGS)}, f32, B={BATCH}, {ADA_STEPS} "
+        f"steps in {ada_s:.1f} s; launches {counts}; p by step: "
+        + ", ".join(f"{r['ada_p']:.5f}" for r in rows)
+        + "; step ms " + ", ".join(f"{r['step_ms']:.1f}" for r in rows))
+    log(f"phase 4i: {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return k1_hr[HR_TOP], k2_hr[tile]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1887,6 +2281,11 @@ def main() -> int:
     # ---- phase 4h: the real face models and the data pipeline -----------------
     face_models_phase(torch, np, dev, smi, work.name, run_path, max_err, keys_of_bins)
 
+    # ---- phase 4i: the GAR at 1024 px -------------------------------------------
+    k1_1024, k2_1024 = highres_phase(
+        torch, np, dev, smi, work.name, os.path.join(work.name, "faces256.srpack"), face, tri,
+        (synth_face, synth_tri), run_path, max_err, keys_of_bins)
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2017,7 +2416,9 @@ def main() -> int:
         "bfm render_mean_face", "FaceWarehouse each", "FLAME each", "pipeline photos",
         "pipeline align", "pipeline align render_ref", "pipeline prepare raw",
         "pipeline prepare jpeg", "pipeline train bfm folder", "pipeline train bfm jpeg shard",
-        "pipeline generate bfm", "pipeline project bfm", "pipeline fid bfm", "pipeline ppl bfm")
+        "pipeline generate bfm", "pipeline project bfm", "pipeline fid bfm", "pipeline ppl bfm",
+        "1024 each", "1024 downsample", "1024 downsample unfused", "cli generate 1024",
+        "cli generate 1024 truncation", "cli generate 1024 generator", "train bf16", "train ada")
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)
@@ -2035,6 +2436,9 @@ def main() -> int:
         "bound_by": k1["bound_by"],
         "library_ms": None,
         "bins_ms": k1["bins_ms"],
+        "ms_top1024": k1_1024["ms"],
+        "bound_ms_top1024": k1_1024["bound_ms"],
+        "plain_ms_top1024_training_mesh_b1": k1_1024["plain_ms"],
     }, {
         "name": "rasterize_single",
         "route": "cuda",
@@ -2049,6 +2453,9 @@ def main() -> int:
         "library_ms": None,
         "bins_ms": k2["bins_ms"],
         "plain_bins_ms": k2["plain_bins_ms"],
+        "ms_1024": k2_1024["ms"],
+        "bound_ms_1024": k2_1024["bound_ms"],
+        "plain_ms_1024_image0": k2_1024["plain_ms_image0"],
     }]}))
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -11,7 +11,10 @@ of ``--bfm`` or, without it, ``synthetic_face(48, 96, 80, 29)`` (9,024
 triangles). ``--sfs``, ``--lmk`` and ``--feat`` add the frozen supervisor
 heads' terms to the G step (``supervisors/hub.py``; fixed-seed random
 stand-ins drawn from ``seed + 1``, as the JAX trainer's).
-``--profile_steps`` is not ported and is refused. Each logged row of ``logs/metrics.jsonl`` carries
+``--profile_steps N`` traces steps ``start + 1`` to ``start + N`` (the
+first step, with its warm-up, is left out, as in the JAX trainer) with
+``torch.profiler`` and writes ``profile/trace.json`` (Chrome trace format)
+under ``--out_dir``. Each logged row of ``logs/metrics.jsonl`` carries
 the step's metrics and ``step_ms``, its host-clock time (the step ends in
 one host synchronisation, reading its finite flag).
 """
@@ -23,10 +26,6 @@ import os
 import time
 
 import torch
-
-NOT_PORTED = {
-    "profile_steps": "--profile_steps is not ported; wrap the run in torch.profiler instead",
-}
 
 
 def build_argparser():
@@ -69,17 +68,14 @@ def build_argparser():
                    help="landmark consistency head on geometry-paired samples (weight 1e-5)")
     p.add_argument("--feat", action="store_true",
                    help="identity consistency head on shape-paired samples (weight 0.001)")
-    p.add_argument("--profile_steps", type=int, default=0, help="not ported")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="write a torch.profiler trace of steps 2..N+1 to OUT_DIR/profile")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
 
 def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(why)
+    args = build_argparser().parse_args(argv)
 
     from stylerenderer_tpu_torch.data import device_prefetch, open_dataset, prefetch_batches
     from stylerenderer_tpu_torch.device import resolve_device
@@ -95,7 +91,9 @@ def main(argv=None):
     from stylerenderer_tpu_torch.utils.config import TrainConfig
     from stylerenderer_tpu_torch.utils.guards import TrainGuard
     from stylerenderer_tpu_torch.utils.image import save_image_grid
-    from stylerenderer_tpu_torch.utils.logging import MetricsLogger, StepTimer
+    from stylerenderer_tpu_torch.utils.logging import (
+        MetricsLogger, StepTimer, start_profiler_trace, stop_profiler_trace, trace_ctx,
+    )
 
     device = resolve_device(args.device)
     seed = args.seed if args.seed >= 0 else int(time.time())
@@ -148,17 +146,27 @@ def main(argv=None):
         return state
 
     guard = TrainGuard(restore_fn=restore_latest)
+    tracing = False
     try:
         for i in range(start_iter, cfg.iter):
+            if args.profile_steps and i == start_iter + 1:
+                start_profiler_trace(os.path.join(args.out_dir, "profile"))
+                tracing = True
             real = next(loader)
             t0 = time.perf_counter()
-            draws = sample_draws(state.generator, cfg, face, real.shape[0], state.g.n_latent,
-                                 heads)
-            # the step discards a non-finite update itself; the guard only
-            # escalates to a checkpoint restore
-            metrics = train_step(state, real, draws, cfg, face, tri, heads)
+            with trace_ctx(f"train_step {i}"):
+                draws = sample_draws(state.generator, cfg, face, real.shape[0],
+                                     state.g.n_latent, heads)
+                # the step discards a non-finite update itself; the guard
+                # only escalates to a checkpoint restore
+                metrics = train_step(state, real, draws, cfg, face, tri, heads)
             step_ms = (time.perf_counter() - t0) * 1e3
             timer.tick()
+            if tracing and i == start_iter + args.profile_steps:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                print(f"profile: {stop_profiler_trace()}")
+                tracing = False
             if i % args.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 guard.check(i, state, m, state)
@@ -180,6 +188,10 @@ def main(argv=None):
             if (i + 1) % args.ckpt_every == 0 or (i + 1) == cfg.iter:
                 save_checkpoint(ckpt_dir, i + 1, state, cfg, max_to_keep=args.ckpt_keep)
     finally:
+        if tracing:  # the run ended inside the window
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            print(f"profile: {stop_profiler_trace()}")
         loader.close()
         batches.close()
         logger.close()

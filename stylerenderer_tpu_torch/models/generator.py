@@ -11,7 +11,19 @@ convolutions before noise and activation. NCHW, reference state-dict names
 (``style.{i}``, ``input.input``, ``conv1``, ``convs.{i}``, ``to_rgb1``,
 ``to_rgbs.{i}``, ``norm1``, ``norm_to_style.{i}``, ``noises.noise_{i}``);
 ``Generator`` has the same names without ``norm1`` and ``norm_to_style``,
-so a reference ``g_ema`` loads into it with ``strict=True``.
+so a reference ``g_ema`` loads into it with ``strict=True``. With
+``n_stylemap != 3`` the GAR adds ``norm1_pre`` and ``norm_to_style_pre.{i}``
+(the JAX package's names).
+
+``remat=True`` (both generators) runs each styled conv under
+``torch.utils.checkpoint`` (non-reentrant, so ``torch.autograd.grad`` and
+the path-length step's double backward pass through it): its activations
+are recomputed in the backward instead of kept, the memory knob of the
+1024 px model, as ``nn.remat`` is in JAX. Fresh noise is drawn before each
+checkpointed conv, in the order and shapes the plain run draws it, because
+the recompute restores only the global RNG states, not a caller's
+``torch.Generator``: a generator gives the same images with ``remat`` on
+and off.
 """
 
 from __future__ import annotations
@@ -20,10 +32,12 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from stylerenderer_tpu_torch.device import resolve_device
 from stylerenderer_tpu_torch.nn.layers import (
     ConstantInput,
+    ConvLayer,
     EqualLinear,
     ModulatedConv2d,
     NoiseInjection,
@@ -176,6 +190,19 @@ class _StyleGenerator(nn.Module):
         z = torch.randn(n_latent, self.style_dim, generator=generator).to(self.device)
         return self.style(z).mean(0, keepdim=True)
 
+    def _styled(self, i: int, conv, x, *args, noise=None, generator=None):
+        """Styled conv ``conv`` (noise layer ``i``) on ``x``; under ``remat``
+        checkpointed, with its noise drawn first when none is given."""
+        if not self.remat:
+            return conv(x, *args, noise, generator)
+        if noise is None:
+            r = _noise_res(i)
+            noise = torch.randn(x.shape[0], 1, r, r, generator=generator,
+                                device=generator.device if generator else x.device)
+        # the conv draws nothing itself now, so no RNG state to restore
+        return checkpoint(conv, x, *args, noise, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def _latent_and_noise(self, styles, input_is_latent, noise, randomize_noise,
                           inject_index, truncation, truncation_latent):
         """Per-layer latents ``[B, n_latent, D]`` and the noise list
@@ -195,14 +222,15 @@ class Generator(_StyleGenerator):
     """The unconditioned StyleGAN2 generator: constant 4x4 input, two styled
     convs and a ToRGB per resolution, per-layer noise. Parameters are drawn
     from ``seed`` and moved to ``device`` (``"cuda"`` unless asked
-    otherwise)."""
+    otherwise); ``remat`` checkpoints the styled convs."""
 
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
-                 lr_mlp: float = 0.01, dtype=torch.float32, seed: int = 0, device="cuda"):
+                 lr_mlp: float = 0.01, dtype=torch.float32, remat: bool = False,
+                 seed: int = 0, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        self.size, self.style_dim, self.dtype = size, style_dim, dtype
+        self.size, self.style_dim, self.dtype, self.remat = size, style_dim, dtype, remat
         self.log_size = int(math.log2(size))
         self.n_latent = self.log_size * 2 - 2
         self.num_layers = (self.log_size - 2) * 2 + 1
@@ -234,13 +262,15 @@ class Generator(_StyleGenerator):
         if noise is None:
             noise = [None] * self.num_layers
         out = self.input(latent.shape[0]).to(self.dtype)
-        out = self.conv1(out, latent[:, 0], noise[0], generator)
+        out = self._styled(0, self.conv1, out, latent[:, 0], noise=noise[0],
+                           generator=generator)
         skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for level in range(len(self.to_rgbs)):
-            out = self.convs[2 * level](out, latent[:, i], noise[1 + 2 * level], generator)
-            out = self.convs[2 * level + 1](out, latent[:, i + 1], noise[2 + 2 * level],
-                                            generator)
+            out = self._styled(1 + 2 * level, self.convs[2 * level], out, latent[:, i],
+                               noise=noise[1 + 2 * level], generator=generator)
+            out = self._styled(2 + 2 * level, self.convs[2 * level + 1], out, latent[:, i + 1],
+                               noise=noise[2 + 2 * level], generator=generator)
             skip = self.to_rgbs[level](out, latent[:, i + 2], skip)
             i += 2
         return skip
@@ -265,25 +295,31 @@ class GeneratorWithMap(_StyleGenerator):
     ``mesh = (vert [B, nv, 3], norm [B, nv, 3], tri [nf, 3])``.
     ``pyramid_mode``: ``"each"`` rasterizes the normals at every level
     (reference-exact); ``"downsample"`` rasterizes once at ``size`` and
-    shrinks that map level by level with the antialiased linear resize
-    (``n_stylemap != 3`` is not ported). ``fused_pyramid`` interpolates the
-    normals inside the multi-level kernel; without it the values come from
-    the gather interpolation over the winners of the multi-level kernel
-    (``"each"``) or of ``rasterize`` (``"downsample"``). ``rasterize_method``
-    is the rasterizer's ``method``. Parameters are drawn from ``seed`` and
-    moved to ``device`` (``"cuda"`` unless asked otherwise).
+    shrinks that map level by level with the antialiased linear resize.
+    ``n_stylemap``: the channels of the normal-map features; other than 3,
+    a ``ConvLayer`` from the 3 normal channels (``norm1_pre``,
+    ``norm_to_style_pre.{i}``) feeds each ResBlock. ``fused_pyramid``
+    interpolates the normals inside the multi-level kernel; without it the
+    values come from the gather interpolation over the winners of the
+    multi-level kernel (``"each"``) or of ``rasterize`` (``"downsample"``).
+    ``rasterize_method``
+    is the rasterizer's ``method``; ``remat`` checkpoints the styled convs.
+    Parameters are drawn from ``seed`` and moved to ``device`` (``"cuda"``
+    unless asked otherwise).
     """
 
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
-                 channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
+                 n_stylemap: int = 3, channel_multiplier: int = 2, blur_kernel=(1, 3, 3, 1),
                  lr_mlp: float = 0.01, dtype=torch.float32,
                  pyramid_mode: str = "each", rasterize_method: str = "auto",
-                 fused_pyramid: bool = True, seed: int = 0, device="cuda"):
+                 fused_pyramid: bool = True, remat: bool = False, seed: int = 0,
+                 device="cuda"):
         super().__init__()
         if pyramid_mode not in ("each", "downsample"):
             raise ValueError(f"pyramid_mode {pyramid_mode!r}: 'each' or 'downsample'")
         device = resolve_device(device)
-        self.size, self.style_dim, self.dtype = size, style_dim, dtype
+        self.size, self.style_dim, self.dtype, self.remat = size, style_dim, dtype, remat
+        self.n_stylemap = n_stylemap
         self.pyramid_mode, self.rasterize_method = pyramid_mode, rasterize_method
         self.fused_pyramid = fused_pyramid
         self.log_size = int(math.log2(size))
@@ -293,13 +329,17 @@ class GeneratorWithMap(_StyleGenerator):
 
         self.style = MappingNetwork(style_dim, n_mlp, lr_mlp)
         self.input = ConstantInput(ch[4])
-        self.norm1 = ResBlock(3, 2, downsample=False, dtype=dtype)
+        if n_stylemap != 3:
+            self.norm1_pre = ConvLayer(3, n_stylemap, 3, dtype=dtype)
+        self.norm1 = ResBlock(n_stylemap, 2, downsample=False, dtype=dtype)
         self.conv1 = StyledMapConv(ch[4], ch[4], 3, style_dim, blur_kernel=blur_kernel,
                                    dtype=dtype)
         self.to_rgb1 = ToRGB(ch[4], style_dim, upsample=False, dtype=dtype)
         self.convs = nn.ModuleList()
         self.to_rgbs = nn.ModuleList()
         self.norm_to_style = nn.ModuleList()
+        if n_stylemap != 3:
+            self.norm_to_style_pre = nn.ModuleList()
         in_channel = ch[4]
         for i in range(3, self.log_size + 1):
             out_channel = ch[2 ** i]
@@ -308,7 +348,9 @@ class GeneratorWithMap(_StyleGenerator):
                                             dtype=dtype))
             self.convs.append(StyledMapConv(out_channel, out_channel, 3, style_dim,
                                             blur_kernel=blur_kernel, dtype=dtype))
-            self.norm_to_style.append(ResBlock(3, 4, downsample=False, dtype=dtype))
+            if n_stylemap != 3:
+                self.norm_to_style_pre.append(ConvLayer(3, n_stylemap, 3, dtype=dtype))
+            self.norm_to_style.append(ResBlock(n_stylemap, 4, downsample=False, dtype=dtype))
             self.to_rgbs.append(ToRGB(out_channel, style_dim, dtype=dtype))
             in_channel = out_channel
         self._register_noise()
@@ -342,16 +384,22 @@ class GeneratorWithMap(_StyleGenerator):
             noise = [None] * self.num_layers
         norm_maps = [m.permute(0, 3, 1, 2).to(self.dtype) for m in norm_maps]
         out = self.input(latent.shape[0]).to(self.dtype)
-        maps = self.norm1(norm_maps[0])
-        out = self.conv1(out, latent[:, 0], maps, noise[0], generator)
+        nm = norm_maps[0]
+        if self.n_stylemap != 3:
+            nm = self.norm1_pre(nm)
+        out = self._styled(0, self.conv1, out, latent[:, 0], self.norm1(nm), noise=noise[0],
+                           generator=generator)
         skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for level in range(len(self.to_rgbs)):
-            maps = self.norm_to_style[level](norm_maps[level + 1])
-            out = self.convs[2 * level](out, latent[:, i], maps[:, :2],
-                                        noise[1 + 2 * level], generator)
-            out = self.convs[2 * level + 1](out, latent[:, i + 1], maps[:, 2:],
-                                            noise[2 + 2 * level], generator)
+            nm = norm_maps[level + 1]
+            if self.n_stylemap != 3:
+                nm = self.norm_to_style_pre[level](nm)
+            maps = self.norm_to_style[level](nm)
+            out = self._styled(1 + 2 * level, self.convs[2 * level], out, latent[:, i],
+                               maps[:, :2], noise=noise[1 + 2 * level], generator=generator)
+            out = self._styled(2 + 2 * level, self.convs[2 * level + 1], out, latent[:, i + 1],
+                               maps[:, 2:], noise=noise[2 + 2 * level], generator=generator)
             skip = self.to_rgbs[level](out, latent[:, i + 2], skip)
             i += 2
         return skip

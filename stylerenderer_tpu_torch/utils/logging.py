@@ -6,6 +6,10 @@ through a raw ``O_APPEND`` descriptor, one ``os.write`` per row (no
 buffered file object whose tail a crash could lose), and mirrors the rows
 to tensorboardX when it is installed and to wandb when asked.
 ``StepTimer`` tracks the rolling step time and images per second.
+``trace_ctx`` names a span in a profiler trace; ``start_profiler_trace``
+and ``stop_profiler_trace`` bracket one ``torch.profiler`` trace of the
+process (CPU, and the card's kernels when there is one) and write it as a
+Chrome trace, as ``jax.profiler.start_trace``/``stop_trace`` do.
 """
 
 from __future__ import annotations
@@ -14,6 +18,12 @@ import json
 import os
 import time
 from typing import Any
+
+import torch
+
+# the trace between start_profiler_trace and stop_profiler_trace: one per
+# process, as jax.profiler's
+_TRACE: dict[str, Any] = {}
 
 
 class MetricsLogger:
@@ -89,3 +99,38 @@ class StepTimer:
     def images_per_sec(self, batch: int) -> float:
         t = self.mean_step_time
         return batch / t if t > 0 else 0.0
+
+
+def trace_ctx(name: str):
+    """A named span in a profiler trace (``torch.profiler.record_function``);
+    spans nest."""
+    return torch.profiler.record_function(name)
+
+
+def start_profiler_trace(log_dir: str) -> None:
+    """Start tracing the host's ops and, on a machine with a card, its
+    kernels; ``stop_profiler_trace`` writes the trace under ``log_dir``."""
+    if _TRACE:
+        raise RuntimeError("a profiler trace is already running")
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _TRACE.update(prof=prof, log_dir=log_dir)
+
+
+def stop_profiler_trace() -> str:
+    """Stop the running trace and write it as ``trace.json`` (Chrome trace
+    format) under its ``log_dir`` -> the file's path. The caller
+    synchronizes the card first, so the traced kernels have ended."""
+    if not _TRACE:
+        raise RuntimeError("no profiler trace is running")
+    prof, log_dir = _TRACE.pop("prof"), _TRACE.pop("log_dir")
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path

@@ -135,12 +135,17 @@ def generator_state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) 
 
 
 def state_dict_from_jax(params, noise=None, blur_kernel=(1, 3, 3, 1)) -> dict:
-    """JAX ``GeneratorWithMap`` params (``n_stylemap=3``) -> the port's
-    state dict."""
+    """JAX ``GeneratorWithMap`` params -> the port's state dict; with
+    ``n_stylemap != 3`` also ``norm1_pre`` and ``norm_to_style_pre_{i}``.
+    Params of a ``remat=True`` model carry the same names."""
     sd = generator_state_dict_from_jax(params, noise, blur_kernel)
     n_levels = sum(1 for k in params if k.startswith("to_rgbs_"))
+    if "norm1_pre" in params:
+        _conv_layer(sd, "norm1_pre", params["norm1_pre"])
     _res_block(sd, "norm1", params["norm1"])
     for i in range(n_levels):
+        if f"norm_to_style_pre_{i}" in params:
+            _conv_layer(sd, f"norm_to_style_pre.{i}", params[f"norm_to_style_pre_{i}"])
         _res_block(sd, f"norm_to_style.{i}", params[f"norm_to_style_{i}"])
     return sd
 

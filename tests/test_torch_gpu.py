@@ -234,69 +234,96 @@ def _in_float64(net: torch.nn.Module) -> torch.nn.Module:
     return net.double()
 
 
-def _step_against_cpu(cuda, monkeypatch, card_d_float64: bool):
-    """One train step (R1 and path both fire; K1 renders the pyramids) at
-    the same weights and draws on the card and on the CPU, TF32 off, the
-    CPU's D in float64 and the card's in float64 (``card_d_float64``, with
-    cuDNN's deterministic algorithms) or float32. The card's step runs
-    first and records each update's gradients and the parameters it
-    produced; the CPU's step then takes those parameters at each update
-    instead of its own Adam step (Adam's first step is about
-    ``lr * sign(g)``, which would turn rounding into parameter differences
-    of ``lr``), so every loss and gradient is taken at the same parameters:
-    metrics to 1e-4, each update's gradients to 1e-3 of each tensor's
-    largest magnitude. K1 launches three times on the card."""
+def _lockstep(monkeypatch, card_state, cpu_states, cfg, face, face_card, tri, real, draws):
+    """One train step at the same weights and draws on the card and on the
+    CPU, TF32 off. The card's step runs first and records each update's
+    gradients and the parameters it produced; each CPU state's step then
+    takes those parameters at each update instead of its own Adam step
+    (Adam's first step is about ``lr * sign(g)``, which would turn
+    rounding into parameter differences of ``lr``), so every loss and
+    gradient is taken at the same parameters. -> (card metrics, per CPU
+    state: (its metrics, [(card gradients, its gradients)] per update)).
+    K1 launches three times on the card."""
     import stylerenderer_tpu_torch.train.step as step_mod
-    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
-    from stylerenderer_tpu_torch.train.state import make_optimizers
-    from stylerenderer_tpu_torch.utils.config import TrainConfig
+    from stylerenderer_tpu_torch.train import train_step
 
-    cfg = TrainConfig(size=16, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
-                      d_reg_every=2, g_reg_every=2)
-    face, tri = synthetic_face(12, 24, 4, 2, device="cpu")
-    face_card = synthetic_face(12, 24, 4, 2, device=cuda)[0]
-    states = {"cpu": init_train_state(cfg, "cpu", seed=1), "cuda": init_train_state(cfg, cuda)}
-    for name in ("g", "d", "g_ema"):
-        getattr(states["cuda"], name).load_state_dict(getattr(states["cpu"], name).state_dict())
-    for dev, st in states.items():
-        if dev == "cpu" or card_d_float64:
-            _in_float64(st.d)
-        st.g_optim, st.d_optim = make_optimizers(cfg, st.g, st.d)
-    draws = sample_draws(torch.Generator().manual_seed(2), cfg, face, 4, states["cpu"].g.n_latent)
-    real = torch.rand(4, 3, 16, 16, generator=torch.Generator().manual_seed(3)) * 2 - 1
     adam = step_mod._adam_step
-    card, cpu = [], []
+    card = []
 
     def on_card(opt, params, grads):
         adam(opt, params, grads)
         card.append(([g.detach().to("cpu", copy=True) for g in grads],
                      [p.detach().to("cpu", copy=True) for p in params]))
 
-    def on_cpu(opt, params, grads):
-        cpu.append([g.detach().clone() for g in grads])
-        with torch.no_grad():
-            for p, q in zip(params, card[len(cpu) - 1][1]):
-                p.copy_(q)
+    def following(cpu):
+        def on_cpu(opt, params, grads):
+            cpu.append([g.detach().clone() for g in grads])
+            with torch.no_grad():
+                for p, q in zip(params, card[len(cpu) - 1][1]):
+                    p.copy_(q)
+        return on_cpu
 
-    if card_d_float64:
-        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-        monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
     try:
         monkeypatch.setattr(step_mod, "_adam_step", on_card)
         before = rasterize_winners_multi.launches
-        m_card = train_step(states["cuda"], real.to(cuda), _to(draws, cuda), cfg, face_card,
+        cuda = face_card.device
+        m_card = train_step(card_state, real.to(cuda), _to(draws, cuda), cfg, face_card,
                             tri.to(cuda))
         assert rasterize_winners_multi.launches == before + 3
-        monkeypatch.setattr(step_mod, "_adam_step", on_cpu)
-        m_cpu = train_step(states["cpu"], real, draws, cfg, face, tri)
+        for st in cpu_states:
+            cpu = []
+            monkeypatch.setattr(step_mod, "_adam_step", following(cpu))
+            m_cpu = train_step(st, real, draws, cfg, face, tri)
+            assert len(card) == len(cpu) == 4
+            out.append((m_cpu, [(gg, gc) for (gg, _), gc in zip(card, cpu)]))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return m_card, out
+
+
+def _step_states(cuda, cfg):
+    """(the CPU and card train states at the same weights, the CPU and
+    card face models, the triangles, a real batch, the step's draws on the
+    CPU) at ``cfg``, batch 4."""
+    from stylerenderer_tpu_torch.train import init_train_state, sample_draws
+
+    face, tri = synthetic_face(12, 24, 4, 2, device="cpu")
+    face_card = synthetic_face(12, 24, 4, 2, device=cuda)[0]
+    states = {"cpu": init_train_state(cfg, "cpu", seed=1), "cuda": init_train_state(cfg, cuda)}
+    for name in ("g", "d", "g_ema"):
+        getattr(states["cuda"], name).load_state_dict(getattr(states["cpu"], name).state_dict())
+    draws = sample_draws(torch.Generator().manual_seed(2), cfg, face, 4, states["cpu"].g.n_latent)
+    real = torch.rand(4, 3, cfg.size, cfg.size, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    return states, face, face_card, tri, real, draws
+
+
+def _step_against_cpu(cuda, monkeypatch, card_d_float64: bool):
+    """One train step (R1 and path both fire; K1 renders the pyramids) in
+    ``_lockstep``, the CPU's D in float64 and the card's in float64
+    (``card_d_float64``, with cuDNN's deterministic algorithms) or float32:
+    metrics to 1e-4, each update's gradients to 1e-3 of each tensor's
+    largest magnitude."""
+    from stylerenderer_tpu_torch.train.state import make_optimizers
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(size=16, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
+                      d_reg_every=2, g_reg_every=2)
+    states, face, face_card, tri, real, draws = _step_states(cuda, cfg)
+    for dev, st in states.items():
+        if dev == "cpu" or card_d_float64:
+            _in_float64(st.d)
+        st.g_optim, st.d_optim = make_optimizers(cfg, st.g, st.d)
+    if card_d_float64:
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+        monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    m_card, [(m_cpu, grads)] = _lockstep(monkeypatch, states["cuda"], [states["cpu"]], cfg,
+                                         face, face_card, tri, real, draws)
     for k, v in m_cpu.items():
         np.testing.assert_allclose(float(m_card[k]), float(v), rtol=1e-4, atol=1e-6, err_msg=k)
-    assert len(card) == len(cpu) == 4
-    for u, ((gg, _), gc) in enumerate(zip(card, cpu)):
+    for u, (gg, gc) in enumerate(grads):
         for i, (a, b) in enumerate(zip(gg, gc)):
             err, scale = float((a - b).abs().max()), float(b.abs().max())
             assert err <= 1e-3 * max(scale, 1e-30), (u, i, err, scale)
@@ -321,6 +348,84 @@ def test_cuda_train_step_float32_matches_cpu_float64(cuda, monkeypatch):
     float32 R1 gradient is well within 1e-3 of float64
     (``tests/torch_r1_conditioning.py``)."""
     _step_against_cpu(cuda, monkeypatch, card_d_float64=False)
+
+
+def _record_input_types(monkeypatch):
+    """Record the device and input type of every ``F.conv2d``,
+    ``F.conv_transpose2d`` and ``F.linear`` call -> the list it fills."""
+    import torch.nn.functional as F
+
+    seen = []
+    for name in ("conv2d", "conv_transpose2d", "linear"):
+        def call(x, *args, _fn=getattr(F, name), _name=name, **kwargs):
+            seen.append((x.device.type, _name, x.dtype))
+            return _fn(x, *args, **kwargs)
+
+        monkeypatch.setattr(F, name, call)
+    return seen
+
+
+def _rel_l2(xs, ys) -> float:
+    """||xs - ys|| / ||ys|| over all the tensors of two gradient lists."""
+    num = sum(float((x - y).double().square().sum()) for x, y in zip(xs, ys))
+    return (num / sum(float(y.double().square().sum()) for y in ys)) ** 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("augment", [False, True])
+def test_cuda_train_step_bfloat16_matches_cpu(cuda, monkeypatch, augment):
+    """One train step with ``compute_dtype="bfloat16"`` (R1 and path both
+    fire; with ``augment``, ADA's augmentations at p = 0.5 on the reals and
+    on the D and G steps' fakes, and its controller firing) on the card
+    against the same step in bf16 and in float32 on the CPU, all at the
+    card's parameters (``_lockstep``).
+
+    - Every conv and linear call takes the same input type on the card as
+      in the CPU's bf16 step, and most take bf16: a missing or wrong cast
+      shows here.
+    - Every metric to one bf16 step (rtol 2**-7): the losses and scores
+      are bf16 scalars, and the card's and the CPU's sums, added in other
+      orders, may round to neighbours (on an H100 up to 6.7e-3 apart, one
+      step of the G loss).
+    - Each update's gradients, as ``_rel_l2`` over all tensors: the card's
+      bf16 gradients are closer to the CPU's bf16 gradients than the CPU's
+      bf16 gradients are to float32's at the same parameters, so the
+      tolerance is what bf16 rounding itself moves (on an H100 the ratio
+      was at most 0.59). A per-tensor bound cannot tell the two apart:
+      sums that cancel, rounded in bf16, leave small tensors (biases of 3
+      to 512 entries) 0.31 of their largest magnitude apart between two
+      bf16 runs and 1.0 between bf16 and float32."""
+    import dataclasses
+
+    from stylerenderer_tpu_torch.train import init_train_state
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(size=16, latent=32, n_mlp=2, channel_multiplier=1, batch=4,
+                      d_reg_every=2, g_reg_every=2, compute_dtype="bfloat16", augment=augment,
+                      ada_every=4, ada_target=0.1, ada_length=100)
+    states, face, face_card, tri, real, draws = _step_states(cuda, cfg)
+    states["float32"] = init_train_state(dataclasses.replace(cfg, compute_dtype="float32"),
+                                         "cpu", seed=1)
+    assert states["cuda"].g.dtype == states["cuda"].d.dtype == torch.bfloat16
+    if augment:
+        for st in states.values():
+            st.ada_p.fill_(0.5)
+    seen = _record_input_types(monkeypatch)
+    m_card, [(m_cpu, grads), (_, grads_f32)] = _lockstep(
+        monkeypatch, states["cuda"], [states["cpu"], states["float32"]], cfg, face, face_card,
+        tri, real, draws)
+    on_card = [(n, t) for d, n, t in seen if d == "cuda"]
+    assert on_card == [(n, t) for d, n, t in seen if d == "cpu"][:len(on_card)]
+    n_bf16 = sum(t == torch.bfloat16 for _, t in on_card)
+    assert n_bf16 > len(on_card) // 2, (n_bf16, len(on_card))
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(float(m_card[k]), float(v), rtol=2.0 ** -7, atol=1e-6,
+                                   err_msg=k)
+    if augment:
+        assert float(m_card["ada_p"]) != 0.5
+    for u, ((gg, gc), (_, gf)) in enumerate(zip(grads, grads_f32)):
+        card_cpu, bf16_f32 = _rel_l2(gg, gc), _rel_l2(gc, gf)
+        assert card_cpu <= bf16_f32, (u, card_cpu, bf16_f32)
 
 
 @pytest.mark.gpu
@@ -729,3 +834,106 @@ def test_cuda_bfm_k1_bitexact(cuda, tmp_path):
         assert torch.equal(wa, wb), f"level {k}: winners differ"
         assert torch.equal(va, vb), f"level {k}: values differ"
     assert float((ref[0][1] >= 0).float().mean()) > 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top,n_levels", [(512, 8), (1024, 9)])
+def test_cuda_k1_tile32_bitexact(cuda, top, n_levels):
+    """K1 at the 1024 px GAR's shapes (tile 32, the 16, 8 and 4 px levels
+    sparse at top 1024) on the 9,024-triangle training mesh at B=1, C=3:
+    winners and values bit-equal to the plain version at every level, one
+    launch."""
+    face, tri = synthetic_face(48, 96, 80, 29, device=cuda)
+    g = torch.Generator().manual_seed(9)
+    vert = random_apply_pose3D(g, face(face.random_input(1, g)))
+    norm = mesh_point_normal(vert, tri)
+    before = rasterize_winners_multi.launches
+    out = rasterize_winners_multi(vert, tri, top, n_levels, attrs=norm)
+    torch.cuda.synchronize()
+    assert rasterize_winners_multi.launches == before + 1
+    ref = rasterize_winners_multi_ref(vert, tri, top, n_levels, attrs=norm, tile=32)
+    for k, ((va, wa), (vb, wb)) in enumerate(zip(out, ref)):
+        assert torch.equal(wa, wb), f"level {k}: winners differ"
+        assert torch.equal(va, vb), f"level {k}: values differ"
+        assert (wb >= 0).any(), f"level {k}: no face pixel"
+
+
+@pytest.mark.gpu
+def test_cuda_remat_gradients_match_plain(cuda):
+    """``remat`` on the card: ``GeneratorWithMap(32, 64, 2)`` f32 (TF32 off,
+    deterministic cuDNN) with noise drawn from one card generator seed and
+    non-zero noise strengths, an image loss plus a path-length term (the
+    double backward through the checkpointed convs): the images equal and
+    every parameter gradient to rtol 1e-4 of the plain run's, as
+    ``tests/test_remat.py`` holds them."""
+    from stylerenderer_tpu_torch.models import GeneratorWithMap
+    from stylerenderer_tpu_torch.train import path_lengths_multi
+
+    flags = _tf32_off()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        face, tri = synthetic_face(12, 24, 4, 2, device=cuda)
+        g = torch.Generator().manual_seed(2)
+        vert = random_apply_pose3D(g, face(face.random_input(2, g)))
+        mesh = (vert, mesh_point_normal(vert, tri), tri)
+        z = torch.randn(2, 64, generator=g).to(cuda)
+        probe = torch.randn(2, 3, 32, 32, generator=g).to(cuda)
+        res = []
+        for remat in (False, True):
+            gen = GeneratorWithMap(32, 64, 2, remat=remat, seed=4, device=cuda)
+            with torch.no_grad():
+                for mod in gen.modules():
+                    if type(mod).__name__ == "NoiseInjection":
+                        mod.weight.fill_(0.3)
+            rng = torch.Generator(cuda).manual_seed(7)
+            img = gen([z], mesh, generator=rng)[0]
+            latent = gen.get_latent(z)[:, None].repeat(1, gen.n_latent, 1)
+            maps = gen.normal_pyramid(mesh)
+            pl = path_lengths_multi(
+                lambda lat, *m: gen.synthesize(lat, list(m), generator=rng), probe,
+                (latent, *maps))
+            loss = img.square().mean() + pl.mean()
+            grads = torch.autograd.grad(loss, list(gen.parameters()), allow_unused=True,
+                                        materialize_grads=True)
+            res.append((img.detach(), [t.cpu() for t in grads]))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        _restore_tf32(flags)
+    (img0, g0), (img1, g1) = res
+    assert torch.equal(img1, img0)
+    for i, (a, b) in enumerate(zip(g1, g0)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=f"parameter {i}")
+    assert max(float(t.abs().max()) for t in g0) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_n_stylemap_matches_cpu(cuda):
+    """``GeneratorWithMap(256, 512, 8, n_stylemap=4)`` at full width on the
+    card against the CPU, TF32 off, explicit noise: normal maps equal (K1
+    on the card, the plain version on the CPU), images to 1e-4."""
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
+
+    flags = _tf32_off()
+    try:
+        g = torch.Generator().manual_seed(3)
+        face, tri = synthetic_face(48, 96, 80, 29, device="cpu")
+        vert = random_apply_pose3D(g, face(face.random_input(1, g)))
+        norm = mesh_point_normal(vert, tri)
+        z = torch.randn(1, 512, generator=g)
+        noise = make_noise(256, 1, g)
+        res = {}
+        for dev in ("cpu", cuda):
+            gen = GeneratorWithMap(256, 512, 8, n_stylemap=4, seed=5, device=dev).eval()
+            assert gen.norm1_pre[0].weight.shape[0] == 4
+            with torch.no_grad():
+                img, _, nm = gen([z.to(dev)], (vert.to(dev), norm.to(dev), tri.to(dev)),
+                                 noise=[n.to(dev) for n in noise], return_normals=True)
+            res[str(dev)] = img.cpu(), [m.cpu() for m in nm]
+    finally:
+        _restore_tf32(flags)
+    (img_c, nm_c), (img_g, nm_g) = res["cpu"], res["cuda"]
+    for a, b in zip(nm_g, nm_c):
+        assert torch.equal(a, b)
+    assert float(img_c.abs().max()) > 1e-3
+    torch.testing.assert_close(img_g, img_c, rtol=1e-4, atol=1e-4)

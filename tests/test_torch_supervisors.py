@@ -454,10 +454,12 @@ def test_cli_train_with_heads(shard, tmp_path, capsys):
     (["FOLDER"], "image-folder data is not ported"),
 ])
 def test_cli_train_still_refuses(shard, tmp_path, capsys, argv, why):
-    """``--profile_steps`` is still refused. ``--bfm`` and image folders,
-    refused with the messages ``why`` before the BFM loader and the folder
-    dataset were ported, train a step now: on the BFM file's mesh, and on
-    a folder of the shard's images."""
+    """``--profile_steps``, ``--bfm`` and image folders, refused with the
+    messages ``why`` before the profiler window, the BFM loader and the
+    folder dataset were ported, train now: 2 steps whose second (the
+    window of steps 2..3, cut by the run's end) is traced to
+    ``profile/trace.json``, a step on the BFM file's mesh, and a step on a
+    folder of the shard's images."""
     import scipy.io
     from torch_face_models import bfm_dict
 
@@ -465,11 +467,6 @@ def test_cli_train_still_refuses(shard, tmp_path, capsys, argv, why):
     from stylerenderer_tpu_torch.data import SRPackReader
     from stylerenderer_tpu_torch.utils.image import write_png
 
-    if argv == ["--profile_steps", "2"]:
-        with pytest.raises(SystemExit):
-            main([shard] + argv + TINY)
-        assert why in capsys.readouterr().err
-        return
     if argv == ["FOLDER"]:
         folder = tmp_path / "faces"
         folder.mkdir()
@@ -477,12 +474,19 @@ def test_cli_train_still_refuses(shard, tmp_path, capsys, argv, why):
             for i in range(r.n_items):
                 write_png(str(folder / f"{i}.png"), r.decode(16, i))
         argv = [str(folder)]
-    else:
+    elif argv[0] == "--bfm":
         bfm = str(tmp_path / "bfm.mat")
         scipy.io.savemat(bfm, bfm_dict(12, 24, 4, 2))
         argv = [shard, "--bfm", bfm]
+    else:
+        argv = [shard] + argv
+    steps = 2 if "--profile_steps" in argv else 1
     out = tmp_path / "run"
-    state = main(argv + ["--iter", "1", "--batch", "2", "--log_every", "1", "--seed", "0",
-                         "--out_dir", str(out)] + TINY)
-    assert state.step == 1 and (out / "checkpoint" / "000001.pt").exists()
+    state = main(argv + ["--iter", str(steps), "--batch", "2", "--log_every", "1", "--seed",
+                         "0", "--out_dir", str(out)] + TINY)
+    assert state.step == steps and (out / "checkpoint" / f"{steps:06d}.pt").exists()
     assert why not in capsys.readouterr().err
+    if steps == 2:
+        with open(out / "profile" / "trace.json") as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert "train_step 1" in names and "train_step 0" not in names
