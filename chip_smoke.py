@@ -53,6 +53,17 @@ entry points a user calls, and prints what it measured:
   memory); ``cli.generate`` at its default 1024 px; ``cli.train`` in bf16
   with ``--profile_steps 2`` (its trace names K1's kernel) and each kind
   of step timed, and with ADA (``p`` moving);
+- the binned search (phase 4j; plain PyTorch, the JAX package's XLA
+  scatter search) on CUDA tensors, bit-equal to the plain version and to
+  K2 on the training mesh and the production mesh at 256^2, B=16, and on
+  image 0 of the production mesh at 1024^2, timed beside K2 (the training
+  mesh at 1024^2 overflows ``big_cap``: its count is reported); ``"auto"``
+  on the card launches K2;
+- the six demonstration scripts (phase 4k) at cut sizes: ``train_demo``
+  (4 steps at 64 px, its FID), ``train_demo256`` and
+  ``train_demo256_ada`` (3 steps each at 256^2, B=16), ``recon_demo`` (4
+  faces, 10 iterations), ``recon_demo256`` (20 Regressor steps, 10 and 20
+  iterations) and ``parity_eval --dry_run``;
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -127,6 +138,12 @@ GAR = dict(size=256, latent=512, n_mlp=8, channel_multiplier=2)
 HR_TOP, HR_LEVELS, HR_TILE = 1024, 9, 32
 HR_FORWARDS, HR_BATCHES, REMAT_BATCH = 3, (16, 4, 1), 4
 ADA_STEPS, ADA_ARGS = 8, ("--ada_every", "4", "--ada_target", "0.1", "--ada_length", "2000")
+# phase 4j: the binned search's timed calls and its big-triangle capacity
+BINNED_ITERS, BIG_CAP = 20, 512
+# phase 4k: the demonstration scripts, in the order they run (each later one
+# reads an earlier one's checkpoint)
+SCRIPTS = ("train_demo", "train_demo256", "train_demo256_ada", "recon_demo", "recon_demo256",
+           "parity_eval")
 MEAN_FACE_HW = (256, 192)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
@@ -1519,7 +1536,7 @@ def metrics_rows(out, steps, what):
 
 
 def highres_phase(torch, np, dev, smi, work, shard, face, tri, synth_mesh, run_path, max_err,
-                  keys_of_bins):
+                  keys_of_bins, binned_cases):
     """Phase 4i: the GAR at 1024 px. K1 at top 1024 (9 levels) and 512 (8),
     tile 32, on the production mesh at B=16, held level by level to K2 and,
     on image 0, to the plain version (the levels of 32 px and up) and to
@@ -1534,7 +1551,9 @@ def highres_phase(torch, np, dev, smi, work, shard, face, tri, synth_mesh, run_p
     same images and gradients, peak memory and time of each;
     ``cli.generate`` at its defaults; ``cli.train`` in bf16 with
     ``--profile_steps 2`` and each kind of step timed, and with ADA.
-    Returns K1's and K2's 1024 px measurements; fails loudly."""
+    Adds image 0 at 1024^2 and the training mesh at B=1 with their plain
+    versions to ``binned_cases``. Returns K1's and K2's 1024 px
+    measurements; fails loudly."""
     from PIL import Image
 
     from stylerenderer_tpu_torch.cli.generate import main as generate_main
@@ -1632,6 +1651,10 @@ def highres_phase(torch, np, dev, smi, work, shard, face, tri, synth_mesh, run_p
             rasterize_winners_single(tv, synth_tri, HR_TOP, HR_TOP, tile=t), train_ref,
             f"K2 {HR_TOP}^2 tile {t}, training mesh B=1, against the plain version"))
     covered = float((outs[0] >= 0).float().mean())
+    binned_cases.append((f"production mesh {HR_TOP}^2 image 0", vert[:1], tri, HR_TOP, HR_TOP,
+                         dense[HR_TOP]))
+    binned_cases.append((f"training mesh {HR_TOP}^2 B=1", tv, synth_tri, HR_TOP, HR_TOP,
+                         train_ref))
     del outs, train_ref
     tile = card_tile(HR_TOP, HR_TOP)
     dat, _, starts = build_bins(vert, tri, HR_TOP, HR_TOP, False, EPS, tile)
@@ -1887,6 +1910,151 @@ def highres_phase(torch, np, dev, smi, work, shard, face, tri, synth_mesh, run_p
     return k1_hr[HR_TOP], k2_hr[tile]
 
 
+def median_ms(torch, fn, iters: int) -> float:
+    """Median device time of ``fn`` in ms over ``iters`` calls after one
+    warm-up, each call between its own CUDA events (host work inside the
+    call counts)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[iters // 2]
+
+
+def binned_phase(torch, smi, cases, run_path):
+    """Phase 4j: the binned search (``ops/rasterize_binned.py``, the JAX
+    package's XLA scatter search as plain PyTorch, no kernel) on CUDA
+    tensors, on each case of ``cases`` (the plain version's winners, which
+    earlier phases computed). Where its overflow count is within
+    ``big_cap`` it must be bit-equal to the plain version and to K2, and
+    it is timed beside K2's wrapper on the same input (CUDA events, median
+    of BINNED_ITERS); where it is not (the 9,024-triangle training mesh at
+    1024^2 has more than 512 triangles wider than 32 px), the search is
+    not exact, as in JAX, and only the count is reported. No kernel is
+    launched. Then ``"auto"`` on a CUDA tensor launches K2 once. Fails
+    loudly."""
+    from stylerenderer_tpu_torch.ops.rasterize import _dispatch_winners
+    from stylerenderer_tpu_torch.ops.rasterize_binned import rasterize_winners_binned
+    from stylerenderer_tpu_torch.ops.rasterize_single import rasterize_winners_single
+
+    t_phase = time.perf_counter()
+    exact = 0
+    for name, vert, tri, h, w, ref in cases:
+        (win, n_big), counts = run_path(f"binned {name}", lambda: rasterize_winners_binned(
+            vert, tri, h, w, return_overflow=True))
+        if counts != {"rasterize_multi": 0, "rasterize_single": 0}:
+            raise AssertionError(f"binned {name}: launched {counts}")
+        if int(n_big.max()) > BIG_CAP:
+            differ = float((win != ref).float().mean())
+            log(f"binned search, {name}: {n_big.tolist()} triangles wider than 32 px, over "
+                f"big_cap {BIG_CAP}: not exact there (as in JAX), {differ:.5f} of the pixels "
+                f"differ from the plain version")
+            continue
+        compare_wins(win, ref, f"binned {name} against the plain version")
+        k2 = rasterize_winners_single(vert, tri, h, w)
+        compare_wins(win, k2, f"binned {name} against K2")
+        exact += 1
+        b_ms = median_ms(torch, lambda: rasterize_winners_binned(vert, tri, h, w), BINNED_ITERS)
+        k_ms = median_ms(torch, lambda: rasterize_winners_single(vert, tri, h, w), BINNED_ITERS)
+        log(f"binned search, {name}: bit-equal to the plain version and to K2; triangles "
+            f"wider than 32 px {n_big.tolist()} of big_cap {BIG_CAP}; {b_ms:.3f} ms against "
+            f"K2's wrapper (card binning and kernel) {k_ms:.4f} ms, median of {BINNED_ITERS} "
+            f"({b_ms / k_ms:.0f}x; {smi})")
+        del win, k2
+    if exact < 3:
+        raise AssertionError(f"the binned search was exact on {exact} cases, not 3")
+    name, vert, tri, h, w, _ = cases[0]
+    _, counts = run_path("binned auto cuda", lambda: _dispatch_winners(
+        vert, tri, h, w, False, EPS, "auto"))
+    if counts != {"rasterize_multi": 0, "rasterize_single": 1}:
+        raise AssertionError(f"'auto' on a CUDA tensor at {h}x{w} launched {counts}")
+    log(f"check: 'auto' on a CUDA tensor ({name}) launches K2 once, never the binned search")
+    log(f"phase 4j: {time.perf_counter() - t_phase:.1f} s; {smi}")
+
+
+def scripts_phase(torch, smi, work, run_path):
+    """Phase 4k: the six demonstration scripts (``stylerenderer_tpu_torch/
+    scripts/``) at cut sizes, each through its ``main`` with the launch
+    counts reset around it, writing under ``work``; every number each
+    returns must be finite, and every script that renders the GAR launches
+    K1 (and K2 where it renders a synth dataset). Fails loudly."""
+    from stylerenderer_tpu_torch.scripts import (
+        parity_eval, recon_demo, recon_demo256, train_demo, train_demo256, train_demo256_ada,
+    )
+    from stylerenderer_tpu_torch.scripts._common import all_finite
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "demos")
+
+    def d(name):
+        return os.path.join(root, name)
+
+    mains = {"train_demo": train_demo.main, "train_demo256": train_demo256.main,
+             "train_demo256_ada": train_demo256_ada.main, "recon_demo": recon_demo.main,
+             "recon_demo256": recon_demo256.main, "parity_eval": parity_eval.main}
+    argv = {
+        "train_demo": ["--steps", "4", "--batch", "32", "--n_data", "256", "--n_fid", "256",
+                       "--ckpt_every", "4", "--log_every", "1", "--out", d("train_demo")],
+        "train_demo256": ["--steps", "3", "--batch", "16", "--n_data", "64", "--ckpt_every",
+                          "3", "--log_every", "1", "--out", d("train_demo256")],
+        "train_demo256_ada": ["--steps", "3", "--batch", "16", "--base", d("train_demo256"),
+                              "--ada_every", "1", "--log_every", "1", "--skip_fid",
+                              "--out", d("train_demo256_ada")],
+        "recon_demo": ["--faces", "4", "--batch", "4", "--iters", "10", "--ckpt",
+                       os.path.join(d("train_demo"), "checkpoint"), "--out", d("recon_demo")],
+        "recon_demo256": ["--faces", "4", "--batch", "4", "--reg_steps", "20", "--reg_batch",
+                          "8", "--iters_short", "10", "--iters_full", "20", "--ckpt",
+                          os.path.join(d("train_demo256"), "checkpoint"),
+                          "--out", d("recon_demo256")],
+        "parity_eval": ["--dry_run", "--with_map", "--out", d("parity_eval")],
+    }
+    # scripts that render a synth dataset with the GAR's writer (K2 at 64 and 256 px)
+    renders_data = ("train_demo", "train_demo256", "parity_eval")
+    secs = {}
+    for name in SCRIPTS:
+        t0 = time.perf_counter()
+        summary, counts = run_path(f"script {name}", lambda: mains[name](argv[name]))
+        secs[name] = time.perf_counter() - t0
+        if not all_finite(summary):
+            raise AssertionError(f"script {name}: a number is not finite: {summary}")
+        if counts["rasterize_multi"] == 0 or (name in renders_data
+                                              and counts["rasterize_single"] == 0):
+            raise AssertionError(f"script {name}: launches {counts}")
+        if name.startswith("recon"):
+            rows = {k: v for k, v in summary.items() if isinstance(v, dict) and "s_per_face" in v}
+            rows = rows or {"fit": summary}
+            key = "; ".join(
+                f"{cfg}: mse {r['pixel_mse']['mean']:.5f}, psnr {r['psnr']['mean']:.2f} dB, lmk "
+                f"{r['lmk_err_px']['mean']:.3f} px, vertex rmse {r['vertex_rmse']['mean']:.5f}, "
+                f"{r['s_per_face']['mean']:.3f} s/face" for cfg, r in rows.items())
+            if "regressor" in summary:
+                key += (f"; regressor loss {summary['regressor']['first_loss']:.4f} -> "
+                        f"{summary['regressor']['final_loss']:.4f} in "
+                        f"{summary['regressor']['seconds']:.1f} s")
+        elif name == "parity_eval":
+            audits = ("audit_inception", "audit_vgg", "audit_lpips_lin")
+            if not all(summary[k]["ok"] for k in audits):
+                raise AssertionError(f"parity_eval: an audit failed: {summary}")
+            key = (f"audits ok ({', '.join(audits)}), fid {summary['fid']['value']:.3f}, ppl "
+                   f"{summary['ppl']['value']:.3f}, lpips pairs "
+                   f"{summary['lpips_fixed_pairs']['mean']:.4f}")
+        else:
+            key = ", ".join(f"{k} {summary[k]}" for k in ("imgs_per_sec", "fid_trend",
+                                                          "ada_p_last", "ada_p_max", "r_t_last",
+                                                          "resumed_from_step")
+                            if k in summary)
+        log(f"script {name}: {secs[name]:.1f} s, launches {counts}; {key}")
+    each = ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+    log(f"phase 4k: {time.perf_counter() - t_phase:.1f} s ({each}); {smi}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1963,6 +2131,10 @@ def main() -> int:
 
     # ---- phase 3: K1 against its plain version ------------------------------
     max_err = {"rasterize_multi": 0.0, "rasterize_single": 0.0}
+    # (name, vertices, triangles, h, w, the plain version's winners): the
+    # inputs phase 4j holds the binned search on, gathered where earlier
+    # phases run the dense search anyway
+    binned_cases = []
     g = torch.Generator().manual_seed(0)
     face, tri = synthetic_face(180, 280, 80, 29, device=dev)
     log(f"mesh: synthetic_face(180, 280, 80, 29): {face.mean.shape[0] // 3} vertices, "
@@ -2034,6 +2206,8 @@ def main() -> int:
     log(k2_report(f"K2 on the synth mesh, {TOP}^2, B={BATCH}", k2_synth)
         + f"; bound {sb_ms:.4f} ms by {sb_by} ({nbytes} bytes, {ops} f32 ops, {pairs} bbox "
         f"pairs, {n_valid} valid of {svert16.shape[0] * synth_tri.shape[0]} binned triangles)")
+    binned_cases.append((f"training mesh {TOP}^2 B={BATCH}", svert16, synth_tri, TOP, TOP,
+                         ref16))
     del ref16
     ref2 = rasterize_winners_single_ref(vert2, tri, TOP, TOP)
     for tile in (8, 16):
@@ -2215,6 +2389,7 @@ def main() -> int:
         f"K2 production mesh B={BATCH} tile {tile}"))
     k2_prod = {t: k2_measure(torch, np, vert, tri, TOP, TOP, t, keys_of_bins, ref16p)
                for t in (8, 16, 32)}
+    binned_cases.append((f"production mesh {TOP}^2 B={BATCH}", vert, tri, TOP, TOP, ref16p))
     del ref16p
     ref1, k1_one_plain_ms = once_ms(
         torch, lambda: rasterize_winners_multi_ref(vert, tri, TOP, 1, attrs=norm))
@@ -2284,7 +2459,14 @@ def main() -> int:
     # ---- phase 4i: the GAR at 1024 px -------------------------------------------
     k1_1024, k2_1024 = highres_phase(
         torch, np, dev, smi, work.name, os.path.join(work.name, "faces256.srpack"), face, tri,
-        (synth_face, synth_tri), run_path, max_err, keys_of_bins)
+        (synth_face, synth_tri), run_path, max_err, keys_of_bins, binned_cases)
+
+    # ---- phase 4j: the binned search on the card -------------------------------
+    binned_phase(torch, smi, binned_cases, run_path)
+    del binned_cases
+
+    # ---- phase 4k: the six demonstration scripts at cut sizes ------------------
+    scripts_phase(torch, smi, work.name, run_path)
 
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -2418,7 +2600,8 @@ def main() -> int:
         "pipeline prepare jpeg", "pipeline train bfm folder", "pipeline train bfm jpeg shard",
         "pipeline generate bfm", "pipeline project bfm", "pipeline fid bfm", "pipeline ppl bfm",
         "1024 each", "1024 downsample", "1024 downsample unfused", "cli generate 1024",
-        "cli generate 1024 truncation", "cli generate 1024 generator", "train bf16", "train ada")
+        "cli generate 1024 truncation", "cli generate 1024 generator", "train bf16", "train ada",
+        "binned auto cuda") + tuple(f"script {name}" for name in SCRIPTS)
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

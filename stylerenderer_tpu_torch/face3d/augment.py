@@ -4,13 +4,16 @@
 - color: brightness, contrast, luma flip, hue rotation about the gray axis
   and saturation as one 3x4 color matrix per sample;
 - geometric: translate, rotate, log-scale and h-flip by an inverse-warp
-  bilinear resample with the border-safe minimum zoom;
+  bilinear resample with the border-safe minimum zoom, or applied to camera
+  matrices instead of pixels (``pose2d_cam_from``; no caller in either
+  package);
 - ``ada_augment``: geometric then color, applied per sample with
   probability ``p``: the hook the ADA controller drives in the train step.
 
 Each transform is split into a draw (``*_draws``, from a
 ``torch.Generator``) and a draw-free core that takes the raw N(0, 1) and
-U(0, 1) draws (``color_matrix_from``, ``pose2d_from``, ``ada_augment``), so
+U(0, 1) draws (``color_matrix_from``, ``pose2d_from``, ``pose2d_cam_from``,
+``ada_augment``), so
 the cores can be fed the JAX package's own draws. Differentiable in the
 image, so the generator's loss passes through the augmentation.
 """
@@ -118,6 +121,60 @@ def pose2d_from(z, s, coin, img, p=POSE_P):
             -sn[:, :, None] * x + cs[:, :, None] * y)
     # normalized sample coordinates (the y axis flips back to image rows)
     return bilinear_sample(img, x * (max(w, h) / float(w)), -y * (max(w, h) / float(h)))
+
+
+def pose2d_cam_from(z, s, coin, cam, p=POSE_P, in_size=None, out_size=None):
+    """The 2D pose applied to camera matrices ``cam`` ``[B, 3, 3]`` (or one
+    ``[3, 3]``) instead of pixels, from the raw draws of ``pose2d_from``:
+    the focal block scaled by ``exp(s * p3 + p4)``, the principal point
+    shifted by ``tx * f_x`` and ``-ty * f_y`` and mirrored where ``coin <
+    p5``. With both ``in_size`` and ``out_size``, ``cam`` is normalized
+    (the principal point in [0, 1]): it is scaled up by ``in_size``, back
+    down by ``out_size``, and mirrored to ``1 - cx``; else mirrored to
+    ``out_size - cx`` (``out_size`` defaulting to ``in_size``, then 1)."""
+    single = cam.ndim == 2
+    if single:
+        cam = cam[None]
+    b = cam.shape[0]
+    p = _abs_p(p, cam.device)
+    z = z * p[:3]
+    f = torch.exp(s * p[3] + p[4])  # [b, 1]
+    flip = (coin < p[5])[:, 0]
+    tx, ty = z[:, 0:1], z[:, 1:2]
+
+    normalized = bool(in_size) and bool(out_size)
+    wi = in_size or 1
+    wo = out_size or in_size or 1
+    cam_px = cam
+    if normalized:
+        cam_px = cam * torch.tensor([[wi], [wi], [1.0]], device=cam.device)[None]
+    one = torch.ones_like(f)
+    scale = torch.cat([f, f, one] * 2 + [one] * 3, 1).reshape(b, 3, 3)
+    shift = torch.zeros(b, 3, 3, device=cam.device)
+    shift[:, 0, 2] = (tx * cam_px[:, 0, 0:1])[:, 0]
+    shift[:, 1, 2] = (-ty * cam_px[:, 1, 1:2])[:, 0]
+    out = cam_px * scale + shift
+    if normalized:
+        out = out / torch.tensor([[wo], [wo], [1.0]], device=cam.device)[None]
+        mirror = 1 - out[:, 0, 2]
+    else:
+        mirror = wo - out[:, 0, 2]
+    out = out.clone()
+    out[:, 0, 2] = torch.where(flip, mirror, out[:, 0, 2])
+    return out[0] if single else out
+
+
+def random_pose2d_cam(generator: torch.Generator, cam, p=POSE_P, in_size=None,
+                      out_size=None):
+    """``pose2d_cam_from`` with its draws (``z`` N(0, 1) ``[B, 3]``, ``s``
+    N(0, 1) ``[B, 1]``, ``coin`` U(0, 1) ``[B, 1]``) taken from
+    ``generator``, on its device."""
+    b = 1 if cam.ndim == 2 else cam.shape[0]
+    dev = generator.device
+    z = torch.randn(b, 3, generator=generator, device=dev)
+    s = torch.randn(b, 1, generator=generator, device=dev)
+    coin = torch.rand(b, 1, generator=generator, device=dev)
+    return pose2d_cam_from(z, s, coin, cam, p, in_size, out_size)
 
 
 @dataclass

@@ -298,10 +298,15 @@ def _dispatch_winners(v, tri, h, w, perspective, eps, method):
     """The winner search for ``method``, by the JAX package's names
     (``rasterize.py:399``):
 
-    - ``"auto"``: the single-level kernel when ``nf*h*w > 2^24`` and h and
-      w are multiples of 8, else the dense search;
+    - ``"auto"``: the dense search when ``nf*h*w <= 2^24`` or h or w is not
+      a multiple of 8; above that, the single-level kernel on a CUDA
+      tensor and the binned search on a CPU tensor (as JAX takes its
+      kernel on the TPU and the binned search off it). The card's path
+      never reaches the binned search unless it is named;
     - ``"dense"``: the dense search;
-    - ``"pallas"``: the single-level kernel (``rasterize_single.py``).
+    - ``"pallas"``: the single-level kernel (``rasterize_single.py``);
+    - ``"binned"``: the windowed scatter search (``rasterize_binned.py``,
+      plain PyTorch), on either device.
 
     ``"pallas_multi"`` names the multi-level pass of the pyramid functions,
     which send the sizes it does not cover here as ``"auto"``; here it is
@@ -309,8 +314,10 @@ def _dispatch_winners(v, tri, h, w, perspective, eps, method):
     tensor."""
     if method == "auto":
         nf = tri.shape[0]
-        small = nf * h * w <= (1 << 24) or h % 8 or w % 8
-        method = "dense" if small else "pallas"
+        if nf * h * w <= (1 << 24) or h % 8 or w % 8:
+            method = "dense"
+        else:
+            method = "pallas" if v.is_cuda else "binned"
     if method == "dense":
         return rasterize_winners(v, tri, h, w, perspective, eps)
     if method == "pallas":
@@ -318,9 +325,9 @@ def _dispatch_winners(v, tri, h, w, perspective, eps, method):
 
         return rasterize_winners_single(v, tri, h, w, perspective, eps)
     if method == "binned":
-        raise ValueError("method 'binned' is the JAX package's XLA scatter search, "
-                         "not a Pallas kernel, and is not ported: use 'auto', 'dense' "
-                         "or 'pallas'")
+        from stylerenderer_tpu_torch.ops.rasterize_binned import rasterize_winners_binned
+
+        return rasterize_winners_binned(v, tri, h, w, perspective, eps)
     raise ValueError(f"unknown rasterize method {method!r}")
 
 

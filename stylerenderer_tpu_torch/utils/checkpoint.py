@@ -23,7 +23,9 @@ from stylerenderer_tpu_torch.utils.config import TrainConfig
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 
-def _steps(ckpt_dir: str) -> list[int]:
+def all_steps(ckpt_dir: str) -> list[int]:
+    """The saved steps under ``ckpt_dir``, oldest first (none if it is
+    missing)."""
     if not os.path.isdir(ckpt_dir):
         return []
     return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(ckpt_dir)) if m)
@@ -66,13 +68,13 @@ def save_checkpoint(ckpt_dir: str, step: int, state, cfg: TrainConfig,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    for old in _steps(ckpt_dir)[:-max_to_keep]:
+    for old in all_steps(ckpt_dir)[:-max_to_keep]:
         os.unlink(_path(ckpt_dir, old))
     return path
 
 
 def latest_step(ckpt_dir: str) -> int | None:
-    steps = _steps(ckpt_dir)
+    steps = all_steps(ckpt_dir)
     return steps[-1] if steps else None
 
 

@@ -32,6 +32,7 @@ from stylerenderer_tpu_torch.supervisors.convert import random_stand_in_
 from stylerenderer_tpu_torch.supervisors.landmark import PFLDInference
 from stylerenderer_tpu_torch.supervisors.recognition import InceptionResnetV1
 from stylerenderer_tpu_torch.utils.image import write_png
+from torch_threads import _one_thread  # noqa: F401
 
 WARP_TOL = 1  # grey levels
 

@@ -1,8 +1,9 @@
 """The port's ADA augmentation against the JAX package: the draw-free cores
 (color matrix, color application, the zero-padded bilinear sampler, the
 2D pose warp, the gated ``ada_augment``) are fed the JAX functions' own
-draws (the same key splits) and held to 1e-5; plus the identity, gray-axis,
-border and gating checks of ``tests/test_augment.py``."""
+draws (the same key splits) and held to 1e-5, the 2D pose on camera
+matrices to rtol 1e-6; plus the identity, gray-axis, border, gating and
+camera identity and flip checks of ``tests/test_augment.py``."""
 
 import functools
 
@@ -16,6 +17,7 @@ from stylerenderer_tpu.face3d.augment import (
     _bilinear_sample as j_bilinear_sample,
     ada_augment as j_ada_augment,
     apply_color as j_apply_color,
+    random_pose2d_cam as j_random_pose2d_cam,
     random_color_matrix as j_random_color_matrix,
     random_pose2d as j_random_pose2d,
 )
@@ -28,9 +30,12 @@ from stylerenderer_tpu_torch.face3d.augment import (
     aug_draws,
     bilinear_sample,
     color_matrix_from,
+    pose2d_cam_from,
     pose2d_from,
+    random_pose2d_cam,
 )
 from stylerenderer_tpu_torch.face3d.transforms import rodrigues
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _t(x):
@@ -195,3 +200,53 @@ def test_ada_gating_and_gradient():
     assert float(out.detach().abs().max()) > 0
     (gx,) = torch.autograd.grad(out.pow(2).sum() + out.sum(), x)
     assert torch.isfinite(gx).all() and float(gx.abs().max()) > 0
+
+
+# ---- the 2D pose on camera matrices --------------------------------------------
+
+_CAM_P = (0.1, 0.1, 0.05, 0.15, 0.05, 0.5)
+
+
+@functools.partial(jax.jit, static_argnames=("in_size", "out_size"))
+def _j_pose_cam(key, cam, in_size, out_size):
+    return _j_pose_draws(key, cam.shape[0]), j_random_pose2d_cam(
+        key, cam, p=_CAM_P, in_size=in_size, out_size=out_size)
+
+
+@pytest.mark.parametrize("in_size,out_size", [(None, None), (256, 128), (64, None)])
+def test_pose2d_cam_matches_jax(in_size, out_size):
+    """The same draws (``random_pose2d_cam``'s key splits) through both
+    packages: to rtol 1e-6, normalized (both sizes) and in pixels, flips
+    included; one ``[3, 3]`` camera as the first of the batch."""
+    rs = np.random.RandomState(4)
+    b = 8
+    normalized = bool(in_size) and bool(out_size)
+    f = rs.uniform(1.0, 1.5, b) if normalized else rs.uniform(200.0, 300.0, b)
+    c = rs.uniform(0.3, 0.7, (b, 2)) if normalized else rs.uniform(20.0, 40.0, (b, 2))
+    cam = np.zeros((b, 3, 3), np.float32)
+    cam[:, 0, 0], cam[:, 1, 1], cam[:, 0, 1] = f, f * 1.01, 0.01
+    cam[:, :2, 2], cam[:, 2, 2] = c, 1.0
+    draws, want = _j_pose_cam(jax.random.PRNGKey(7), jnp.asarray(cam), in_size, out_size)
+    z, s, coin = _torch(draws)
+    assert 0 < int((coin < 0.5).sum()) < b  # some flipped, some not
+    out = pose2d_cam_from(z, s, coin, _t(cam), _CAM_P, in_size, out_size)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    one = pose2d_cam_from(z[:1], s[:1], coin[:1], _t(cam[0]), _CAM_P, in_size, out_size)
+    assert one.shape == (3, 3)
+    np.testing.assert_allclose(one.numpy(), np.asarray(want)[0], rtol=1e-6, atol=0)
+
+
+def test_pose2d_cam_identity_and_flip():
+    """``tests/test_augment.py``'s checks: no pose keeps a normalized camera;
+    a certain flip mirrors its principal point (0.5 stays, 0.3 goes to
+    0.7). The draws come from a ``torch.Generator``."""
+    cam_n = torch.tensor([[[1.2, 0, 0.5], [0, 1.2, 0.5], [0, 0, 1.0]]])
+    g = torch.Generator().manual_seed(0)
+    out = random_pose2d_cam(g, cam_n, p=(0, 0, 0, 0, 0, 0), in_size=256, out_size=256)
+    np.testing.assert_allclose(out.numpy(), cam_n.numpy(), atol=1e-5)
+    out_f = random_pose2d_cam(g, cam_n, p=(0, 0, 0, 0, 0, 1.0), in_size=256, out_size=256)
+    np.testing.assert_allclose(float(out_f[0, 0, 2]), 0.5, atol=1e-5)
+    cam_off = cam_n.clone()
+    cam_off[0, 0, 2] = 0.3
+    out_f2 = random_pose2d_cam(g, cam_off, p=(0, 0, 0, 0, 0, 1.0), in_size=256, out_size=256)
+    np.testing.assert_allclose(float(out_f2[0, 0, 2]), 0.7, atol=1e-5)

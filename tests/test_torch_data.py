@@ -33,18 +33,9 @@ from stylerenderer_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from stylerenderer_tpu_torch.utils.config import TrainConfig
+from torch_threads import _one_thread  # noqa: F401
 
 SIZES = (8, 16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _images(n, seed=0):

@@ -25,6 +25,7 @@ from stylerenderer_tpu_torch.face3d import (
     sphere_face_mesh,
     synthetic_face,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(12, 24, 4, 2), (48, 96, 80, 29)])

@@ -30,6 +30,7 @@ from stylerenderer_tpu_torch.face3d import (
 )
 from stylerenderer_tpu_torch.models import GeneratorWithMap
 from stylerenderer_tpu_torch.utils.weights import noise_from_jax, state_dict_from_jax
+from torch_threads import _one_thread  # noqa: F401
 
 # a reordered FLAME tree: the root is joint 1, joint 2 its child, the rest
 # children of joint 2 (the loaders reorder parents first)

@@ -42,6 +42,7 @@ from stylerenderer_tpu_torch.ops.rasterize_multi import rasterize_winners_multi
 from stylerenderer_tpu_torch.utils.weights import (
     generator_state_dict_from_jax, noise_from_jax, state_dict_from_jax,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -212,6 +212,48 @@ def test_cuda_rasterize_production_size_takes_single_kernel(cuda):
     np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
 
 
+@pytest.mark.gpu
+def test_cuda_auto_takes_single_kernel_not_binned(cuda, monkeypatch):
+    """``"auto"`` on a CUDA tensor above ``2^24`` pairs calls the
+    single-level kernel's wrapper, which launches once, and never the binned
+    search, patched here to fail; named, the binned search runs on the card
+    and gives the same winners."""
+    import stylerenderer_tpu_torch.ops.rasterize_binned as rasterize_binned_mod
+
+    face, tri = synthetic_face(48, 96, 80, 29, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    vert = random_apply_pose3D(g, face(face.random_input(2, g)))
+    binned = rasterize_binned_mod.rasterize_winners_binned(vert, tri, 256, 256)
+    assert binned.is_cuda
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("'auto' on a CUDA tensor reached the binned search")
+
+    monkeypatch.setattr(rasterize_binned_mod, "rasterize_winners_binned", refuse)
+    single = rasterize_winners_single.launches
+    out = rasterize(vert, mesh_point_normal(vert, tri), tri, 256, 256)
+    torch.cuda.synchronize()
+    assert rasterize_winners_single.launches == single + 1 and out.is_cuda
+    win = rasterize_winners_single(vert, tri, 256, 256)
+    np.testing.assert_array_equal(binned.cpu().numpy(), win.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_cuda_binned_matches_plain(cuda, case):
+    """The binned search on CUDA tensors equals the plain version (the dense
+    search) on every single-level case, with no kernel launched."""
+    from stylerenderer_tpu_torch.ops.rasterize_binned import rasterize_winners_binned
+
+    v, tri, h, w, tile, persp = single_case(case)
+    v, tri = torch.from_numpy(v).to(cuda), torch.from_numpy(tri).to(cuda)
+    single, multi = rasterize_winners_single.launches, rasterize_winners_multi.launches
+    out = rasterize_winners_binned(v, tri, h, w, persp)
+    assert (rasterize_winners_single.launches, rasterize_winners_multi.launches) == (single, multi)
+    ref = rasterize_winners_single_ref(v, tri, h, w, persp)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
 def _to(obj, device):
     """A step's draws (dataclasses, lists, tensors) moved to ``device``."""
     import dataclasses

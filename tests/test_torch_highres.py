@@ -52,19 +52,10 @@ from stylerenderer_tpu_torch.utils.logging import (
 from stylerenderer_tpu_torch.utils.weights import (
     generator_state_dict_from_jax, noise_from_jax, state_dict_from_jax,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 SIZE, STYLE, N_MLP, CM, B = 16, 32, 2, 1, 2  # tests/test_remat.py's model
 NOISE_RES = (4, 8, 8, 16, 16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nhwc(t):

@@ -43,6 +43,7 @@ from stylerenderer_tpu_torch.inversion.project import GEO, _apply_pose, fit_segm
 from stylerenderer_tpu_torch.models import GeneratorWithMap
 from stylerenderer_tpu_torch.models.generator import make_noise
 from stylerenderer_tpu_torch.utils.weights import lpips_state_dict_from_jax, state_dict_from_jax
+from torch_threads import _one_thread  # noqa: F401
 
 SIZE, LATENT, N_MLP, B = 16, 32, 2, 2
 LMK = [0, 5, 17, 33, 60]
@@ -56,16 +57,6 @@ B1 = 0.9
 
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _perturb(sd, seed):

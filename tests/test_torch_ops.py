@@ -35,6 +35,7 @@ from stylerenderer_tpu_torch.ops.upfirdn2d import (
     upfirdn2d_ref,
     upsample2d,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _rand(shape, seed=0):

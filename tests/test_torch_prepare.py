@@ -16,6 +16,7 @@ from stylerenderer_tpu_torch.cli import prepare_data
 from stylerenderer_tpu_torch.data import (
     ImageFolderDataset, SRPackDataset, SRPackReader, list_images, open_dataset, prepare,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 # the module (the JAX package's ``data`` exports a function of its name)
 jprep = importlib.import_module("stylerenderer_tpu.data.prepare")

@@ -10,8 +10,8 @@ against its own plain version.
   in every segment;
 - the plain version and the host build against the JAX Pallas kernel in
   interpret mode: winners equal;
-- the method names: the dispatch rule, ``"pallas"`` in ``rasterize``,
-  ``"pallas_multi"`` in the pyramid functions only, ``"binned"`` refused.
+- the method names: the dispatch rule, ``"pallas"`` and ``"binned"`` in
+  ``rasterize``, ``"pallas_multi"`` in the pyramid functions only.
 
 Inputs are made with numpy from seeds and handed to both packages.
 """
@@ -34,6 +34,7 @@ from stylerenderer_tpu_torch.ops import rasterize_single as rs
 from stylerenderer_tpu_torch.ops.rasterize import (
     rasterize, rasterize_index_coeff, rasterize_pyramid, rasterize_pyramid_fused,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 
 # the module, which the package's ``rasterize`` function shadows
@@ -248,19 +249,23 @@ def _spy(monkeypatch, module, name):
 
 
 def test_auto_dispatch_rule(monkeypatch):
-    """``"auto"`` takes the single-level kernel's wrapper exactly when
-    ``nf*h*w > 2^24`` and h, w are multiples of 8 (the JAX rule), and the
-    dense search otherwise."""
+    """``"auto"`` on a CPU tensor takes the binned search exactly when
+    ``nf*h*w > 2^24`` and h, w are multiples of 8 (the JAX rule off the
+    TPU), and the dense search otherwise; never the single-level kernel's
+    wrapper (the card's ``"auto"``: ``test_torch_gpu.py``)."""
+    import stylerenderer_tpu_torch.ops.rasterize_binned as rb
+
     single = _spy(monkeypatch, rs, "rasterize_winners_single")
+    binned = _spy(monkeypatch, rb, "rasterize_winners_binned")
     dense = _spy(monkeypatch, port_rasterize, "rasterize_winners")
     v = torch.zeros(1, 3, 3)
     tri = torch.zeros(1 << 11, 3, dtype=torch.long)  # all triangles degenerate, off
-    for h, w, kernel in [(96, 96, True), (88, 96, True), (90, 96, False), (64, 64, False)]:
-        single.clear()
-        dense.clear()
+    for h, w, big in [(96, 96, True), (88, 96, True), (90, 96, False), (64, 64, False)]:
+        for calls in (single, binned, dense):
+            calls.clear()
         win = port_rasterize._dispatch_winners(v, tri, h, w, False, 1e-6, "auto")
         assert win.shape == (1, h, w) and bool((win == -1).all())
-        assert (len(single), len(dense)) == ((1, 0) if kernel else (0, 1)), (h, w)
+        assert (len(single), len(binned), len(dense)) == ((0, 1, 0) if big else (0, 0, 1)), (h, w)
 
 
 def test_method_names():
@@ -269,7 +274,8 @@ def test_method_names():
     ``rasterize_index_coeff``; ``"pallas_multi"`` names the pyramid
     functions' multi-level pass and gives the per-size dense maps there,
     while ``rasterize`` refuses it, as JAX's does; ``"binned"``, the JAX
-    package's XLA scatter search, is refused."""
+    package's XLA scatter search, gives the dense winners in ``rasterize``
+    and ``rasterize_index_coeff``."""
     v, tri, h, w, tile, persp = single_case("sphere")
     attrs = _t(np.random.RandomState(1).randn(*v.shape).astype(np.float32))
     ref = rasterize(_t(v), attrs, _t(tri), h, w, persp, method="dense")
@@ -291,8 +297,12 @@ def test_method_names():
             torch.testing.assert_close(
                 m, rasterize(_t(v), attrs, _t(tri), s, s, persp, method="dense"),
                 rtol=0, atol=0)
-    with pytest.raises(ValueError, match="XLA scatter"):
-        rasterize(_t(v), attrs, _t(tri), h, w, method="binned")
+    torch.testing.assert_close(rasterize(_t(v), attrs, _t(tri), h, w, persp, method="binned"),
+                               ref, rtol=0, atol=0)
+    idx, coeff = rasterize_index_coeff(_t(v), _t(tri), h, w, persp, method="binned")
+    ridx, rcoeff = rasterize_index_coeff(_t(v), _t(tri), h, w, persp, method="dense")
+    torch.testing.assert_close(idx, ridx, rtol=0, atol=0)
+    torch.testing.assert_close(coeff, rcoeff, rtol=0, atol=0)
     for method in ("pallas_multi", "nope"):
         with pytest.raises(ValueError, match="unknown"):
             rasterize(_t(v), attrs, _t(tri), h, w, method=method)

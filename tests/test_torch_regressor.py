@@ -35,18 +35,9 @@ from stylerenderer_tpu_torch.train import (
     init_regressor_state, make_regressor_fn, make_regressor_trainer, regressor_step,
 )
 from stylerenderer_tpu_torch.utils.weights import _conv_layer, regressor_state_dict_from_jax
+from torch_threads import _one_thread  # noqa: F401
 
 STYLE, N_MLP = 32, 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nchw(x):

@@ -56,16 +56,7 @@ from stylerenderer_tpu_torch.utils.weights import (
     pfld_state_dict_from_jax,
     state_dict_from_jax,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _nchw(x):
@@ -453,7 +444,7 @@ def test_cli_train_with_heads(shard, tmp_path, capsys):
     (["--profile_steps", "2"], "--profile_steps is not ported"),
     (["FOLDER"], "image-folder data is not ported"),
 ])
-def test_cli_train_still_refuses(shard, tmp_path, capsys, argv, why):
+def test_cli_train_takes_profile_bfm_and_folder(shard, tmp_path, capsys, argv, why):
     """``--profile_steps``, ``--bfm`` and image folders, refused with the
     messages ``why`` before the profiler window, the BFM loader and the
     folder dataset were ported, train now: 2 steps whose second (the

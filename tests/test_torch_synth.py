@@ -32,6 +32,7 @@ from stylerenderer_tpu_torch.face3d import synthetic_face
 from stylerenderer_tpu_torch.face3d.alignment import render_mean_face
 from stylerenderer_tpu_torch.ops.rasterize_single import rasterize_winners_single
 from stylerenderer_tpu_torch.ops.resize import resize_linear
+from torch_threads import _one_thread  # noqa: F401
 
 
 def test_resize_pyramid_matches_jax():

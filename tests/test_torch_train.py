@@ -58,6 +58,7 @@ from stylerenderer_tpu_torch.utils.weights import (
     discriminator_state_dict_from_jax,
     state_dict_from_jax,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 SIZE, LATENT, N_MLP, B = 8, 16, 1, 4
 B2 = 2  # the batch of the schedule, ADA and screen tests
@@ -126,16 +127,6 @@ def _assert_tree_close(port, ref, rel, path=""):
 def _close(a, b, rel):
     a = a.detach() if isinstance(a, torch.Tensor) else a
     np.testing.assert_allclose(float(a), float(b), rtol=rel, atol=rel * 1e-3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel processes,
-    where torch's thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
