@@ -64,6 +64,14 @@ entry points a user calls, and prints what it measured:
   ``train_demo256_ada`` (3 steps each at 256^2, B=16), ``recon_demo`` (4
   faces, 10 iterations), ``recon_demo256`` (20 Regressor steps, 10 and 20
   iterations) and ``parity_eval --dry_run``;
+- data-parallel training (phase 4l, ``parallel/mesh.py``): ``cli.train``
+  at world 1 under NCCL against the same run without a group, both with
+  deterministic algorithms (metrics and checkpoint bit-equal), the
+  ``torch.distributed.run`` launcher at one process, two ranks spawned on
+  the card through gloo (one step at step 0, TF32 off, against world 1
+  at the doubled batch to 1e-4; each rank's K1 launches counted), and
+  each kind of step timed at world 1 with and without the group, with
+  the collectives' time;
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -88,6 +96,7 @@ are random, made from fixed seeds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -104,6 +113,7 @@ DS_FORWARDS = 5    # timed forwards of each "downsample" path
 SYNTH_IMAGES = 64
 TRAIN_STEPS = 5    # through the CLI: R1 + path, plain x3, path
 TRAIN_REPS = 3     # timed steps of each kind afterwards
+PAR_REPS = 1       # phase 4l: timed steps of each kind in each turn
 # state.step values that schedule each kind of step at d_reg_every=16,
 # g_reg_every=4
 STEP_KINDS = {"plain": 9, "path": 8, "R1 + path": 16}
@@ -616,7 +626,7 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
     def plain_ms(with_screen):
         if not with_screen:
             step_mod._take_backup, step_mod.all_finite = (lambda st: [],
-                                                          lambda values, tensors: True)
+                                                          lambda *args: True)
         try:
             state.step = STEP_KINDS["plain"]
             torch.cuda.synchronize()
@@ -2055,6 +2065,272 @@ def scripts_phase(torch, smi, work, run_path):
     log(f"phase 4k: {time.perf_counter() - t_phase:.1f} s ({each}); {smi}")
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms (``index_add``, cuDNN, cuBLAS)
+    inside the block; the previous settings after it."""
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:3]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
+
+
+def checkpoint_diffs(a: str, b: str) -> list:
+    """The entries of two ``cli.train`` checkpoint files that are not equal
+    bit for bit (tensors by ``torch.equal``, the rest by ``==``)."""
+    import torch
+
+    def flat(x, key=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from flat(v, f"{key}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                yield from flat(v, f"{key}/{i}")
+        else:
+            yield key, x
+
+    ca, cb = (dict(flat(torch.load(f, map_location="cpu", weights_only=True))) for f in (a, b))
+    if ca.keys() != cb.keys():
+        return sorted(ca.keys() ^ cb.keys())
+    return [k for k in ca if not (torch.equal(ca[k], cb[k]) if isinstance(ca[k], torch.Tensor)
+                                  else ca[k] == cb[k])]
+
+
+def parallel_phase(torch, np, dev, smi, shard, work, run_path, path_launches, check_k1,
+                   synth_mesh):
+    """Phase 4l: data-parallel training (``parallel/mesh.py``) on the one
+    card. (a) ``cli.train.main`` in this process at world 1 under NCCL
+    (the launcher's variables set by hand), TRAIN_STEPS steps at full width,
+    B=16, on ``shard``, held bit for bit to the same run without a group,
+    both with deterministic algorithms: every logged metric and the
+    checkpoint; (b) the real launcher, ``torch.distributed.run
+    --standalone --nproc_per_node 1``, exits 0 with (a)'s checkpoint up to
+    the card's run-to-run spread (it runs PyTorch's defaults); (c) two
+    spawned ranks on the card through gloo (NCCL refuses two ranks on one
+    device), one step at step 0 with TF32 off at local batch 8, against
+    world 1 at 16 in this process, each update landing on rank 0's
+    parameters, to 1e-4, each rank's K1 launches reported back, K1 held
+    bit for bit to its plain version at the local batch; (d) each kind of
+    step's ms at world 1
+    with and without the group, in turns, and the collectives' ms in a
+    step of each kind. Fails loudly on any check."""
+    from torch_parallel import (
+        Ranks, free_port, landed_step, make_state, step_inputs, timed_collectives,
+    )
+
+    from stylerenderer_tpu_torch.cli.train import main as train_main
+    from stylerenderer_tpu_torch.parallel import make_mesh
+    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.train.step import posed_mesh
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    synth_face, synth_tri = synth_mesh
+    argv = [shard, "--iter", str(TRAIN_STEPS), "--batch", str(BATCH), "--d_reg_every", "16",
+            "--g_reg_every", "4", "--log_every", "1", "--sample_every", str(TRAIN_STEPS),
+            "--ckpt_every", str(TRAIN_STEPS), "--seed", "0"]
+    out = {k: os.path.join(work, f"parallel_{k}") for k in ("none", "nccl", "launcher")}
+    ckpt = {k: os.path.join(v, "checkpoint", "%06d.pt" % TRAIN_STEPS) for k, v in out.items()}
+    launcher_vars = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    kinds = ["R1 + path" if i % 16 == 0 else "path" if i % 4 == 0 else "plain"
+             for i in range(TRAIN_STEPS)]
+    want = {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds) + 1,
+            "rasterize_single": 0}
+
+    # ---- (a) world 1 under NCCL against no group, through the CLI, with
+    # deterministic algorithms: by default two runs without a group already
+    # differ (index_add's atomics in mesh_point_normal, cuDNN's algorithms)
+    seconds = {}
+    with deterministic(torch):
+        for name, env in (("none", {}), ("nccl", {
+                "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                "MASTER_PORT": str(free_port())})):
+            os.environ.update(env)
+            t0 = time.perf_counter()
+            try:
+                _, counts = run_path(f"parallel {name}", lambda: train_main(
+                    argv + ["--out_dir", out[name]]))
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            seconds[name] = time.perf_counter() - t0
+            if counts != want:
+                raise AssertionError(f"parallel {name}: launches {counts}, expected {want}")
+    rows = {k: metrics_rows(out[k], TRAIN_STEPS, f"parallel {k}") for k in ("none", "nccl")}
+    for a, b in zip(rows["none"], rows["nccl"]):
+        diff = [k for k in a if k not in ("step_ms", "imgs_per_sec") and a[k] != b[k]]
+        if diff:
+            raise AssertionError(f"parallel: world 1 under NCCL differs at step {a['step']}: "
+                                 f"{diff}")
+    diff = checkpoint_diffs(ckpt["none"], ckpt["nccl"])
+    if diff:
+        raise AssertionError(f"parallel: world-1 NCCL checkpoint differs: {diff[:8]}")
+    log(f"phase 4l (a): cli.train at world 1 under NCCL, {TRAIN_STEPS} steps at full width, "
+        f"B={BATCH}, deterministic algorithms: every metric and the checkpoint bit-equal to "
+        f"the run without a group; "
+        f"launches {want} in each; {seconds['none']:.1f} s without, {seconds['nccl']:.1f} s "
+        f"with the group (host clock, set-up and checkpoint included); step ms "
+        + ", ".join(f"{a['step_ms']:.1f}/{b['step_ms']:.1f}"
+                    for a, b in zip(rows["none"], rows["nccl"])) + " (without/with)")
+
+    # ---- (b) the launcher, in the background while (c) runs
+    env = {k: v for k, v in os.environ.items() if k not in launcher_vars}
+    launched = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "stylerenderer_tpu_torch.cli.train"] + argv + ["--out_dir", out["launcher"]],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t_launch = time.perf_counter()
+
+    # ---- (c) two gloo ranks on the card against world 1 at the doubled batch
+    spec = dict(device="cuda", backend="gloo", one_card=True, tf32=False, record="params",
+                deterministic=True,
+                cfg=dict(GAR, batch=BATCH, d_reg_every=16, g_reg_every=4, seed=0),
+                face=(48, 96, 80, 29), real=real_batch(torch, np, shard, dev).cpu(),
+                draw_seed=11, step=0, run=["step"])
+    ranks_dir = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    ranks = Ranks(2, spec, ranks_dir, timeout=400)
+    try:
+        cfg, st = make_state(spec, dev)
+        real, draws, _ = step_inputs(spec, cfg, st, synth_face, dev)
+        vert, norm, _ = posed_mesh(synth_face, synth_tri, draws.d_face, draws.d_pose)
+        half = BATCH // 2
+        check_k1(vert[half:].contiguous(), norm[half:].contiguous(), half)
+        del vert, norm
+        results = ranks.wait()
+    except BaseException:
+        ranks.kill()
+        launched.kill()
+        launched.wait()
+        raise
+    ranks_s = time.perf_counter() - t0
+    # world 1 at the doubled batch, each update landing on the parameters
+    # rank 0's next update saw: Adam's first step (~lr sign(g)) would turn
+    # the ranks' other order of summation into parameter differences
+    rec = results[0]["step"]
+    final = {k: [t.to(dev) for t in rec[k]] for k in ("d", "g")}
+    records = [(side, [t.to(dev) for t in params], None) for side, params, _ in rec["records"]]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with deterministic(torch):
+            m1, _ = landed_step(st, real, draws, cfg, synth_face, synth_tri, {}, records, final)
+            m1 = {k: float(v) for k, v in m1.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del st, draws, records, final, rec
+    for r, res in enumerate(results):
+        step = res["step"]
+        path_launches[f"parallel gloo rank {r}"] = {"rasterize_multi": step["k1_launches"],
+                                                    "rasterize_single": 0}
+        if step["k1_launches"] != 3 or step["step"] != 1 or res["device"] != "cuda:0":
+            raise AssertionError(f"parallel gloo rank {r}: {step['k1_launches']} K1 launches, "
+                                 f"step {step['step']}, {res['device']}")
+        errs = {k: abs(step["metrics"][k] - v) / max(abs(v), 1e-30) for k, v in m1.items()}
+        log(f"phase 4l (c) rank {r}: relative differences from world 1: "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+        bad = {k: e for k, e in errs.items() if e > 1e-4}
+        if bad:
+            raise AssertionError(f"parallel gloo rank {r}: {bad} over 1e-4 of world 1")
+    log(f"phase 4l (c): 2 gloo ranks on the card, one step at step 0 (R1 + path) at local "
+        f"batch {half}, TF32 off: every metric within 1e-4 of world 1 at B={BATCH} ("
+        + ", ".join(f"{k} {m1[k]:.6g}" for k in ("d", "r1", "g", "path", "path_length"))
+        + f"); K1 3 launches on each rank; {ranks_s:.1f} s with the spawn; per rank, its "
+        f"first step (warm-up included) "
+        + ", ".join(f"{res['step']['step_ms']:.1f} ms with {res['step']['collectives']['ms']:.1f}"
+                    f" ms in {res['step']['collectives']['calls']} collectives"
+                    for res in results) + " (host clock, each collective timed alone)")
+
+    # ---- (b), continued
+    # the launched run takes PyTorch's defaults (nothing asks a launched
+    # process for deterministic algorithms; cuDNN's convolutions in TF32):
+    # its checkpoint is (a)'s run, every entry but the trained tensors
+    # equal, those within the card's run-to-run spread, and its first D
+    # loss and scores, taken before any update, within TF32's rounding,
+    # 1e-3 (of 1 where smaller: the scores are means of logits near 0)
+    try:
+        log_b, _ = launched.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        launched.kill()
+        launched.wait()
+        raise
+    launch_s = time.perf_counter() - t_launch
+    if launched.returncode != 0:
+        raise AssertionError(f"parallel launcher: exit {launched.returncode}\n{log_b[-3000:]}")
+    ca, cb = (torch.load(ckpt[k], map_location="cpu", weights_only=True)
+              for k in ("none", "launcher"))
+    diff = [k for k in checkpoint_diffs(ckpt["none"], ckpt["launcher"])
+            if k.split("/")[1] not in ("g", "d", "g_ema", "g_optim", "d_optim", "ada_signs",
+                                        "mean_path_length")
+            or k.endswith("/step") or "/param_groups/" in k]
+    row_b = metrics_rows(out["launcher"], TRAIN_STEPS, "parallel launcher")[0]
+    first = {k: (row_b[k], rows["none"][0][k]) for k in ("d", "real_score", "fake_score")
+             if abs(row_b[k] - rows["none"][0][k]) > 1e-3 * max(abs(rows["none"][0][k]), 1.0)}
+    if diff or first:
+        raise AssertionError(f"parallel launcher: checkpoint entries {diff[:8]} or first "
+                             f"metrics {first} (launched, (a)) differ from (a)'s")
+    spread = max(float((cb[p][k] - t).abs().max()) / max(float(t.abs().max()), 1e-30)
+                 for p in ("g", "d") for k, t in ca[p].items())
+    if not spread < 1.0:
+        raise AssertionError(f"parallel launcher: parameters off by {spread} of their scale")
+    log(f"phase 4l (b): torch.distributed.run --standalone --nproc_per_node 1 -m "
+        f"stylerenderer_tpu_torch.cli.train exited 0 in {launch_s:.1f} s (beside (c)); its "
+        f"checkpoint is (a)'s run: every entry but the trained tensors equal, the first D "
+        f"loss and scores within 1e-3 (of 1 where smaller; "
+        + ", ".join(f"{k} {row_b[k] - rows['none'][0][k]:.3g}"
+                    for k in ("d", "real_score", "fake_score"))
+        + f" off), the parameters within {spread:.3g} of each tensor's largest magnitude "
+        f"(PyTorch's default algorithms, TF32 convolutions)")
+
+    # ---- (d) each kind of step at world 1, with and without the group
+    cfg = TrainConfig(batch=BATCH, d_reg_every=16, g_reg_every=4)
+    st = init_train_state(cfg, dev, seed=0)
+    real = real_batch(torch, np, shard, dev)
+    mesh = make_mesh("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{free_port()}")
+    try:
+        for kind, at in STEP_KINDS.items():
+            def steps(m, n, at=at):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    st.step = at
+                    draws = sample_draws(st.generator, cfg, synth_face, BATCH, st.g.n_latent)
+                    train_step(st, real, draws, cfg, synth_face, synth_tri, mesh=m)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / n
+
+            steps(mesh, 1)
+            turns = [steps(m, PAR_REPS) for m in (None, mesh, mesh, None)]
+            totals, undo = timed_collectives(dev)
+            try:
+                steps(mesh, 1)
+            finally:
+                undo()
+            if st.nonfinite_count:
+                raise AssertionError(f"parallel {kind}: {st.nonfinite_count} screened steps")
+            log(f"phase 4l (d) {kind} step at world 1, B={BATCH}: without the group "
+                f"{turns[0]:.1f}, {turns[3]:.1f} ms, under NCCL {turns[1]:.1f}, {turns[2]:.1f} ms "
+                f"(host clock, {PAR_REPS} step a turn, in turns); its collectives "
+                f"{totals['ms']:.2f} ms in {totals['calls']} calls (each timed alone, the card "
+                f"synchronized around it)")
+    finally:
+        mesh.destroy()
+    del st
+    log(f"phase 4l: {time.perf_counter() - t_phase:.1f} s; {smi}")
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2468,6 +2744,10 @@ def main() -> int:
     # ---- phase 4k: the six demonstration scripts at cut sizes ------------------
     scripts_phase(torch, smi, work.name, run_path)
 
+    # ---- phase 4l: data-parallel training over torch.distributed ---------------
+    parallel_phase(torch, np, dev, smi, os.path.join(work.name, "faces256.srpack"), work.name,
+                   run_path, path_launches, check_k1, (synth_face, synth_tri))
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2601,7 +2881,8 @@ def main() -> int:
         "pipeline generate bfm", "pipeline project bfm", "pipeline fid bfm", "pipeline ppl bfm",
         "1024 each", "1024 downsample", "1024 downsample unfused", "cli generate 1024",
         "cli generate 1024 truncation", "cli generate 1024 generator", "train bf16", "train ada",
-        "binned auto cuda") + tuple(f"script {name}" for name in SCRIPTS)
+        "binned auto cuda") + tuple(f"script {name}" for name in SCRIPTS) + (
+        "parallel none", "parallel nccl", "parallel gloo rank 0", "parallel gloo rank 1")
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)

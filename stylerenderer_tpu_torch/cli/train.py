@@ -1,7 +1,8 @@
 """Training CLI (counterpart of ``stylerenderer_tpu/cli/train.py``):
 adversarial training of the GAR with lazy R1 and path-length
 regularization, ADA, EMA, checkpoints, the finite guard and periodic
-sample grids, on one card (or the CPU with ``--device cpu``).
+sample grids, on one card (or the CPU with ``--device cpu``) or across
+ranks.
 
     python -m stylerenderer_tpu_torch.cli.train DATA [--bfm BFM.mat --size 256 --batch 16 ...]
 
@@ -17,6 +18,23 @@ first step, with its warm-up, is left out, as in the JAX trainer) with
 under ``--out_dir``. Each logged row of ``logs/metrics.jsonl`` carries
 the step's metrics and ``step_ms``, its host-clock time (the step ends in
 one host synchronisation, reading its finite flag).
+
+Across ranks, one process per card:
+
+    python -m torch.distributed.run --nproc_per_node W -m stylerenderer_tpu_torch.cli.train DATA --batch 16 ...
+
+``--batch`` is the global batch, as in the JAX trainer: W must divide it
+and the path batch (``batch // path_batch_shrink``), or the run raises.
+``--device`` names the device type; rank ``r`` takes ``cuda:LOCAL_RANK``
+(NCCL), or the CPU (gloo). The seed is rank 0's; the state is broadcast
+from rank 0 after it is made or loaded. Every rank reads only its rows
+``[r B/W, (r+1) B/W)`` of each global batch (the same shuffle and flips
+on every rank) and draws the whole step's draws from the replicated
+generator; the step (``train/step.py``) gathers, reduces and averages so
+that its losses, metrics and updates are those of the global batch. Rank
+0 alone writes the sample grids, the logs, the profiler trace and the
+checkpoints (every rank waits for each checkpoint and can restore from
+it). Without a launcher the run is one process with no group.
 """
 
 from __future__ import annotations
@@ -77,14 +95,25 @@ def build_argparser():
 def main(argv=None):
     args = build_argparser().parse_args(argv)
 
+    from stylerenderer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        mesh.destroy()
+
+
+def _train(args, mesh):
     from stylerenderer_tpu_torch.data import device_prefetch, open_dataset, prefetch_batches
-    from stylerenderer_tpu_torch.device import resolve_device
     from stylerenderer_tpu_torch.face3d import (
         load_face_model, mesh_point_normal, random_apply_pose3D,
     )
     from stylerenderer_tpu_torch.models import make_noise
+    from stylerenderer_tpu_torch.parallel import constrain_batch, replicate, replicated
     from stylerenderer_tpu_torch.supervisors import make_extra_heads
     from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.train.step import path_batch_size
     from stylerenderer_tpu_torch.utils.checkpoint import (
         latest_step, load_checkpoint, save_checkpoint,
     )
@@ -95,8 +124,13 @@ def main(argv=None):
         MetricsLogger, StepTimer, start_profiler_trace, stop_profiler_trace, trace_ctx,
     )
 
-    device = resolve_device(args.device)
+    def say(*a, **kw):
+        if mesh.is_main:
+            print(*a, **kw)
+
+    device = mesh.device
     seed = args.seed if args.seed >= 0 else int(time.time())
+    seed = int(replicated(mesh, [torch.tensor([seed])])[0])
     cfg = TrainConfig(
         size=args.size, latent=args.latent, n_mlp=args.n_mlp,
         channel_multiplier=args.channel_multiplier, iter=args.iter,
@@ -109,9 +143,12 @@ def main(argv=None):
         ada_every=args.ada_every, n_sample=args.n_sample, seed=seed,
         compute_dtype=args.compute_dtype, pyramid_mode=args.pyramid_mode,
     )
+    for what, n in (("batch", cfg.batch), ("path batch", path_batch_size(cfg, cfg.batch))):
+        if n % mesh.world:
+            raise ValueError(f"{what} {n} not divisible by {mesh.world} ranks")
 
     dataset = open_dataset(args.path, resolution=cfg.size)
-    print(f"dataset: {len(dataset)} images at {cfg.size}px")
+    say(f"dataset: {len(dataset)} images at {cfg.size}px")
     face, tri = load_face_model(args.bfm, device=device)
     state = init_train_state(cfg, device, seed)
     heads = make_extra_heads(cfg.seed + 1, sfs=args.sfs, lmk=args.lmk, feat=args.feat,
@@ -121,10 +158,11 @@ def main(argv=None):
     if args.ckpt:
         state, _ = load_checkpoint(args.ckpt, state)
         start_iter = state.step
-        print(f"resumed from {args.ckpt} at step {start_iter}")
+        say(f"resumed from {args.ckpt} at step {start_iter}")
+    replicate(mesh, state)
 
     batches = prefetch_batches(dataset, cfg.batch, seed=seed,
-                               pin_memory=device.type == "cuda")
+                               pin_memory=device.type == "cuda", rows=mesh.rows(cfg.batch))
     loader = device_prefetch(batches, device)
 
     # the fixed evaluation set: latents, posed meshes and noise
@@ -134,32 +172,33 @@ def main(argv=None):
     sample_mesh = (sample_v, mesh_point_normal(sample_v, tri), tri)
     sample_noise = make_noise(cfg.size, cfg.n_sample, torch.Generator().manual_seed(0), device)
 
-    logger = MetricsLogger(os.path.join(args.out_dir, "logs"), args.wandb)
+    logger = MetricsLogger(os.path.join(args.out_dir, "logs"), args.wandb, rank=mesh.rank)
     timer = StepTimer()
-    os.makedirs(os.path.join(args.out_dir, "sample"), exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(os.path.join(args.out_dir, "sample"), exist_ok=True)
 
     def restore_latest():
         if latest_step(ckpt_dir) is None:
             raise RuntimeError("non-finite training metrics and no checkpoint to restore from")
         load_checkpoint(ckpt_dir, state)
-        print("guard: restored from latest checkpoint")
+        say("guard: restored from latest checkpoint")
         return state
 
     guard = TrainGuard(restore_fn=restore_latest)
     tracing = False
     try:
         for i in range(start_iter, cfg.iter):
-            if args.profile_steps and i == start_iter + 1:
+            if args.profile_steps and i == start_iter + 1 and mesh.is_main:
                 start_profiler_trace(os.path.join(args.out_dir, "profile"))
                 tracing = True
-            real = next(loader)
+            real = constrain_batch(next(loader), mesh, cfg.batch)
             t0 = time.perf_counter()
             with trace_ctx(f"train_step {i}"):
-                draws = sample_draws(state.generator, cfg, face, real.shape[0],
+                draws = sample_draws(state.generator, cfg, face, cfg.batch,
                                      state.g.n_latent, heads)
                 # the step discards a non-finite update itself; the guard
                 # only escalates to a checkpoint restore
-                metrics = train_step(state, real, draws, cfg, face, tri, heads)
+                metrics = train_step(state, real, draws, cfg, face, tri, heads, mesh)
             step_ms = (time.perf_counter() - t0) * 1e3
             timer.tick()
             if tracing and i == start_iter + args.profile_steps:
@@ -174,10 +213,10 @@ def main(argv=None):
                 m["imgs_per_sec"] = timer.images_per_sec(cfg.batch)
                 logger.log(i, m)
                 if i % (args.log_every * 10) == 0:
-                    print(f"step {i}  d {m['d']:.4f}  g {m['g']:.4f}  r1 {m['r1']:.4f}  "
-                          f"path {m['path']:.4f}  ada {m['ada_p']:.3f}  {step_ms:.1f} ms  "
-                          f"{m['imgs_per_sec']:.1f} img/s", flush=True)
-            if (i + 1) % args.sample_every == 0:
+                    say(f"step {i}  d {m['d']:.4f}  g {m['g']:.4f}  r1 {m['r1']:.4f}  "
+                        f"path {m['path']:.4f}  ada {m['ada_p']:.3f}  {step_ms:.1f} ms  "
+                        f"{m['imgs_per_sec']:.1f} img/s", flush=True)
+            if (i + 1) % args.sample_every == 0 and mesh.is_main:
                 with torch.no_grad():
                     img, _, norms = state.g_ema([sample_z], sample_mesh, return_normals=True,
                                                 noise=sample_noise)
@@ -186,7 +225,8 @@ def main(argv=None):
                 save_image_grid(os.path.join(args.out_dir, "sample", f"{i:06d}_norm.png"),
                                 norms[-1].float().cpu().numpy())
             if (i + 1) % args.ckpt_every == 0 or (i + 1) == cfg.iter:
-                save_checkpoint(ckpt_dir, i + 1, state, cfg, max_to_keep=args.ckpt_keep)
+                save_checkpoint(ckpt_dir, i + 1, state, cfg, max_to_keep=args.ckpt_keep,
+                                mesh=mesh)
     finally:
         if tracing:  # the run ended inside the window
             if device.type == "cuda":

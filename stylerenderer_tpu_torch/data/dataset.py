@@ -36,12 +36,14 @@ def list_images(root: str, extensions: Sequence[str] = IMG_EXTENSIONS) -> list[s
 
 
 def to_train_tensor(batch_u8: np.ndarray, rng: np.random.Generator | None = None,
-                    hflip: bool = True) -> torch.Tensor:
+                    hflip: bool = True, flips: np.ndarray | None = None) -> torch.Tensor:
     """uint8 ``[B, H, W, 3]`` -> float32 ``[B, 3, H, W]`` in [-1, 1], each
-    sample flipped horizontally with probability 1/2 (drawn from ``rng``)."""
+    sample flipped horizontally with probability 1/2 (drawn from ``rng``,
+    or given as the boolean ``flips``)."""
     x = batch_u8.astype(np.float32) / 127.5 - 1.0
-    if hflip and rng is not None:
+    if hflip and flips is None and rng is not None:
         flips = rng.random(len(x)) < 0.5
+    if hflip and flips is not None:
         x[flips] = x[flips, :, ::-1]
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
@@ -103,12 +105,16 @@ def open_dataset(path: str, resolution: int = 256):
 
 
 def prefetch_batches(dataset, batch_size: int, *, seed: int = 0, train: bool = True,
-                     depth: int = 3, drop_last: bool = True,
-                     pin_memory: bool = False) -> Iterator[torch.Tensor]:
+                     depth: int = 3, drop_last: bool = True, pin_memory: bool = False,
+                     rows: slice | None = None) -> Iterator[torch.Tensor]:
     """Endless (``train``: shuffled epochs, random flips) or single-epoch
     iterator of float32 ``[B, 3, H, W]`` batches in [-1, 1], assembled in a
     background thread; ``pin_memory`` puts them in page-locked memory for
-    ``non_blocking`` copies. An error in the thread is raised here."""
+    ``non_blocking`` copies. An error in the thread is raised here.
+
+    ``rows`` (a rank's ``Mesh.rows(batch_size)``): only those rows of each
+    batch are read and yielded. Every rank runs the same seeded shuffle and
+    flip draws, so its rows are those of the one-process batch."""
     n = len(dataset)
     if n < (batch_size if drop_last else 1):
         raise ValueError(f"{n} images cannot fill a batch of {batch_size}")
@@ -131,8 +137,11 @@ def prefetch_batches(dataset, batch_size: int, *, seed: int = 0, train: bool = T
             while not stop.is_set():
                 order = rng.permutation(n) if train else np.arange(n)
                 for i in range(0, n - (batch_size - 1 if drop_last else 0), batch_size):
-                    batch = to_train_tensor(dataset.read_batch(order[i:i + batch_size]),
-                                            rng if train else None, hflip=train)
+                    idx = order[i:i + batch_size]
+                    flips = rng.random(len(idx)) < 0.5 if train else None
+                    if rows is not None:
+                        idx, flips = idx[rows], None if flips is None else flips[rows]
+                    batch = to_train_tensor(dataset.read_batch(idx), hflip=train, flips=flips)
                     if not put(batch.pin_memory() if pin_memory else batch):
                         return
                 if not train:

@@ -57,8 +57,11 @@ class Discriminator(nn.Module):
         reset_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        """Logits of ``x``; with ``mesh``, ``x`` is a rank's rows of the
+        global batch and the minibatch-stddev groups are the global
+        batch's (``minibatch_stddev``)."""
         out = self.convs(x.to(self.dtype))
-        out = minibatch_stddev(out, self.stddev_group, self.stddev_feat)
+        out = minibatch_stddev(out, self.stddev_group, self.stddev_feat, mesh)
         out = self.final_conv(out)
         return self.final_linear(out.reshape(out.shape[0], -1))

@@ -293,11 +293,22 @@ class ResBlock(nn.Module):
         return (out + self.skip(x)) / math.sqrt(2)
 
 
-def minibatch_stddev(x, group_size: int = 4, num_features: int = 1):
+def minibatch_stddev(x, group_size: int = 4, num_features: int = 1, mesh=None):
     """The minibatch standard-deviation channel: samples are grouped as
     ``reshape(g, b // g, ...)`` with ``g = min(b, group_size)``; per group
     member, the biased std over the group (``+1e-8`` inside the sqrt),
-    averaged over (C/f, H, W), is appended as ``f`` channels."""
+    averaged over (C/f, H, W), is appended as ``f`` channels.
+
+    With a ``mesh`` (``parallel/mesh.py``) that has a group, ``x`` is a
+    rank's rows of the global batch: the groups are taken over the global
+    batch, gathered with gradient (``Mesh.gather_rows``), and the rank's
+    rows of the channel are appended. Without a group nothing is cut,
+    since a slice in the graph can change the order of the backward's
+    sums."""
+    rows = None
+    if mesh is not None and mesh.group is not None:
+        local, x = x, mesh.gather_rows(x)
+        rows = mesh.rows(x.shape[0])
     b, c, h, w = x.shape
     g = min(b, group_size)
     f = num_features
@@ -305,6 +316,8 @@ def minibatch_stddev(x, group_size: int = 4, num_features: int = 1):
     std = torch.sqrt(torch.var(y, dim=0, unbiased=False) + 1e-8)
     std = torch.mean(std, dim=(2, 3, 4))  # [b // g, f]
     std = std[None, :, :, None, None].expand(g, b // g, f, h, w).reshape(b, f, h, w)
+    if rows is not None:
+        x, std = local, std[rows]
     return torch.cat([x, std.to(x.dtype)], 1)
 
 

@@ -25,13 +25,15 @@ def g_nonsaturating_loss(fake_pred):
     return F.softplus(-fake_pred).mean()
 
 
-def r1_penalty(disc, real_img):
+def r1_penalty(disc, real_img, gather=None):
     """R1 gradient penalty ``E[||grad_x D(x)||^2]`` on the reals; ``disc``
     is any callable image -> logits. Differentiable in ``disc``'s
-    parameters."""
+    parameters. ``gather`` (``Mesh.gather_rows``) takes the mean over the
+    global batch when ``real_img`` is a rank's rows of it."""
     real_img = real_img.detach().requires_grad_(True)
     (grad_real,) = torch.autograd.grad(disc(real_img).sum(), real_img, create_graph=True)
-    return grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(1).mean()
+    sq = grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(1)
+    return (sq if gather is None else gather(sq)).mean()
 
 
 def path_lengths_multi(synth_fn, probe, inputs, lambdas=None):

@@ -37,18 +37,52 @@ Reading the finite flag is the step's one host synchronisation; it keeps
 The rasterizer is never differentiated: the meshes are made under
 ``no_grad`` and the path step's pyramid is detached, as the JAX step's
 ``stop_gradient``s do (its backward is first order only).
+
+Across ranks (``mesh`` from ``parallel/mesh.py::make_mesh``, one process
+per card) a world-W step computes the step of the global batch ``B``,
+as the JAX step jitted over a ``Mesh('data')`` does:
+
+- ``real`` holds the rank's rows ``[r B/W, (r+1) B/W)`` of the global
+  batch (``Mesh.rows``); ``draws`` are the global draws, the same on every
+  rank (``sample_draws(..., cfg.batch)`` from the replicated generator,
+  with the ``feat`` half-copy applied to the global batch), and the step
+  takes the rank's rows of them. The path batch is the global first
+  ``path_batch_size(cfg, B)`` rows, split the same way. Every rank poses
+  the global batch's meshes (the ``lmk`` pairing is the global batch's)
+  and takes its rows: its G rows and its path rows, which may lie outside
+  its G rows. Posed at the global batch's size, the vertices round as on
+  one process, so no pixel of a rank's pyramid flips.
+- Gathered with gradient (``Mesh.gather_rows``), so that every loss and
+  metric is the global batch's and is equal on every rank: D's logits on
+  the reals and fakes, R1's per-sample squared norms, G's logits, the
+  heads' outputs (``sfs`` maps, ``feat`` embeddings, ``lmk`` landmarks)
+  and the path lengths, whose mean stays inside the penalty's gradient.
+  D's minibatch-stddev groups are taken over the global batch
+  (``Discriminator.forward(x, mesh)``). ADA's sign sum and count are
+  those of the gathered logits.
+- Each of the four updates averages its gradients over the ranks
+  (``Mesh.average_gradients``) between ``_grads`` and ``_adam_step``.
+- The finite screen's flag is the minimum over the ranks, so that every
+  rank keeps or restores its state together.
+
+Parameters stay equal on every rank because every rank applies the same
+averaged gradients to the same values. With ``mesh=None`` (or world 1
+without a group) every collective is the identity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from stylerenderer_tpu_torch.face3d.augment import AugDraws, ada_augment, aug_draws
 from stylerenderer_tpu_torch.face3d.geometry import apply_pose3D, mesh_point_normal, pose3D_draws
 from stylerenderer_tpu_torch.models.generator import _mix_styles, make_noise
+from stylerenderer_tpu_torch.parallel.mesh import Mesh
 from stylerenderer_tpu_torch.train import losses
 from stylerenderer_tpu_torch.train.state import TrainState
 from stylerenderer_tpu_torch.utils.config import TrainConfig
@@ -159,25 +193,55 @@ def pair_geometry(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _style_rows(s: StyleDraws, rows: slice) -> StyleDraws:
+    return StyleDraws(s.z1[rows], s.z2[rows], s.mix, s.inject)
+
+
+def _aug_rows(a: AugDraws | None, rows: slice) -> AugDraws | None:
+    if a is None:
+        return None
+    return AugDraws(*(getattr(a, f.name)[rows] for f in dataclasses.fields(a)))
+
+
+def shard_draws(draws: StepDraws, rows: slice, path_rows: slice) -> StepDraws:
+    """A rank's rows of the global ``draws``: ``rows`` of the batch's,
+    ``path_rows`` of the path batch's; the 0-d mixing coins and inject
+    indices are shared."""
+    return StepDraws(
+        _style_rows(draws.d_styles, rows), draws.d_face[rows], draws.d_pose[rows],
+        [n[rows] for n in draws.d_noise],
+        _style_rows(draws.g_styles, rows), draws.g_face[rows], draws.g_pose[rows],
+        [n[rows] for n in draws.g_noise],
+        _style_rows(draws.p_styles, path_rows), [n[path_rows] for n in draws.p_noise],
+        draws.p_probe[path_rows],
+        *(_aug_rows(a, rows) for a in (draws.d_aug_real, draws.d_aug_fake, draws.g_aug)))
+
+
 def _smooth_l1(a, b):
     return F.smooth_l1_loss(a, b, beta=1.0)
 
 
-def head_losses(heads: dict, fimg, norms, batch: int) -> dict:
+def _identity(t):
+    return t
+
+
+def head_losses(heads: dict, fimg, norms, batch: int, gather=_identity) -> dict:
     """The heads' terms ``{metric: (weight, value)}`` on G's images
-    ``fimg`` and normal maps ``norms``, in the JAX step's order."""
+    ``fimg`` and normal maps ``norms``, in the JAX step's order. Each
+    head's output (and ``sfs``'s target) goes through ``gather`` first,
+    which across ranks gives the global batch of ``batch`` rows."""
     half, res = _halves(batch)
     fimg = fimg.float()
     out = {}
     if "sfs" in heads:
         nm = norms[-1]
         mask = (torch.sum(nm * nm, -1, keepdim=True) > 1e-3).to(nm.dtype)
-        out["sfs"] = 0.01, _smooth_l1(mask * heads["sfs"](fimg), mask * nm)
+        out["sfs"] = 0.01, _smooth_l1(gather(mask * heads["sfs"](fimg)), gather(mask * nm))
     if "feat" in heads:
-        feat = heads["feat"](fimg)
+        feat = gather(heads["feat"](fimg))
         out["feature"] = 0.001, torch.mean((feat[:res] - feat[half:]) ** 2)
     if "lmk" in heads:
-        lmk = heads["lmk"](fimg)
+        lmk = gather(heads["lmk"](fimg))
         out["lmk"] = 1e-5, _smooth_l1(lmk[: res * 2:2], lmk[1::2])
     return out
 
@@ -225,13 +289,17 @@ def _restore_backup(state: TrainState, host_steps) -> None:
             t.fill_(v)
 
 
-def all_finite(values, tensors) -> bool:
+def all_finite(values, tensors, mesh: Mesh | None = None) -> bool:
     """Whether every 0-d value and every element of ``tensors`` is finite
-    (max-abs norms, one host synchronisation)."""
+    (max-abs norms, one host synchronisation); with ``mesh``, on every
+    rank (the minimum of the ranks' flags)."""
     flags = [v.detach().float().reshape(()) for v in values]
     flags += [n.float() for n in torch._foreach_norm([t.detach() for t in tensors],
                                                      float("inf"))]
-    return bool(torch.isfinite(torch.stack(flags)).all())
+    ok = torch.isfinite(torch.stack(flags)).all()
+    if mesh is not None:
+        ok = mesh.all_reduce_(ok.float(), op=dist.ReduceOp.MIN) > 0
+    return bool(ok)
 
 
 @torch.no_grad()
@@ -258,31 +326,47 @@ def ada_update(cfg: TrainConfig, p, signs, count, real_pred):
 
 
 def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: TrainConfig,
-               face, tri, heads: dict | None = None) -> dict:
+               face, tri, heads: dict | None = None, mesh: Mesh | None = None) -> dict:
     """One step on the real batch ``real`` ``[B, 3, size, size]`` in [-1, 1];
     updates ``state`` in place and returns the metrics (0-d tensors on the
     device, ``nonfinite_steps`` an int). ``heads``: the frozen supervisors
     (``make_extra_heads``), whose ``draws`` come from ``sample_draws(...,
-    heads=heads)``."""
+    heads=heads)``. With ``mesh``, ``real`` is the rank's rows of the
+    global batch, ``draws`` the global draws, and the step and its metrics
+    are the global batch's (module docstring)."""
     heads = heads or {}
+    mesh = Mesh() if mesh is None else mesh
     g, d = state.g, state.d
     g_params, d_params = list(g.parameters()), list(d.parameters())
+    batch = real.shape[0] * mesh.world
+    rows, path_rows = mesh.rows(batch), mesh.rows(path_batch_size(cfg, batch))
+    local = shard_draws(draws, rows, path_rows)
+    gather = mesh.gather_rows
     host_steps = _take_backup(state)
     metrics = {}
     zero = torch.zeros((), device=real.device)
 
+    def disc(img):
+        return d(img, mesh=mesh)
+
+    def update(opt, params, loss):
+        _adam_step(opt, params, mesh.average_gradients(_grads(loss, params)))
+
     # ---- D step ----
+    # every mesh is posed for the whole global batch, as on one process (a
+    # smaller batch can round the vertices otherwise), and cut to the rows
+    d_vert, d_norm, _ = posed_mesh(face, tri, draws.d_face, draws.d_pose)
     with torch.no_grad():
-        fake = g(draws.d_styles.styles(), posed_mesh(face, tri, draws.d_face, draws.d_pose),
-                 inject_index=draws.d_styles.inject, noise=draws.d_noise)[0]
+        fake = g(local.d_styles.styles(), (d_vert[rows], d_norm[rows], tri),
+                 inject_index=local.d_styles.inject, noise=local.d_noise)[0]
     real_aug, fake_d = real, fake
     if cfg.augment:
-        real_aug = ada_augment(real, state.ada_p, draws.d_aug_real)
-        fake_d = ada_augment(fake, state.ada_p, draws.d_aug_fake)
-    real_pred = d(real_aug)
-    fake_pred = d(fake_d)
+        real_aug = ada_augment(real, state.ada_p, local.d_aug_real)
+        fake_d = ada_augment(fake, state.ada_p, local.d_aug_fake)
+    real_pred = gather(disc(real_aug))
+    fake_pred = gather(disc(fake_d))
     d_loss = losses.d_logistic_loss(real_pred, fake_pred)
-    _adam_step(state.d_optim, d_params, _grads(d_loss, d_params))
+    update(state.d_optim, d_params, d_loss)
     real_pred = real_pred.detach()
     metrics["d"] = d_loss.detach()
     metrics["real_score"] = real_pred.mean()
@@ -300,51 +384,50 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
     # ---- lazy R1 ----
     metrics["r1"] = zero
     if state.step % cfg.d_reg_every == 0:
-        r1 = losses.r1_penalty(d, real)
-        _adam_step(state.d_optim, d_params,
-                   _grads(cfg.r1 / 2.0 * r1 * cfg.d_reg_every, d_params))
+        r1 = losses.r1_penalty(disc, real, gather)
+        update(state.d_optim, d_params, cfg.r1 / 2.0 * r1 * cfg.d_reg_every)
         metrics["r1"] = r1.detach()
 
     # ---- G step ----
-    vert_g, norm_g, _ = posed_mesh(face, tri, draws.g_face, draws.g_pose)
+    vert_all, norm_all, _ = posed_mesh(face, tri, draws.g_face, draws.g_pose)
     if "lmk" in heads:
-        vert_g, norm_g = pair_geometry(vert_g), pair_geometry(norm_g)
-    fimg, _, norms = g(draws.g_styles.styles(), (vert_g, norm_g, tri),
-                       inject_index=draws.g_styles.inject, noise=draws.g_noise,
+        vert_all, norm_all = pair_geometry(vert_all), pair_geometry(norm_all)
+    vert_g, norm_g = vert_all[rows], norm_all[rows]
+    fimg, _, norms = g(local.g_styles.styles(), (vert_g, norm_g, tri),
+                       inject_index=local.g_styles.inject, noise=local.g_noise,
                        return_normals="sfs" in heads)
     fimg_d = fimg
     if cfg.augment and "lmk" not in heads:
-        fimg_d = ada_augment(fimg, ada_p, draws.g_aug)
-    g_loss = losses.g_nonsaturating_loss(d(fimg_d))
-    for name, (weight, value) in head_losses(heads, fimg, norms, real.shape[0]).items():
+        fimg_d = ada_augment(fimg, ada_p, local.g_aug)
+    g_loss = losses.g_nonsaturating_loss(gather(disc(fimg_d)))
+    for name, (weight, value) in head_losses(heads, fimg, norms, batch, gather).items():
         g_loss = g_loss + weight * value
         metrics[name] = value.detach()
-    _adam_step(state.g_optim, g_params, _grads(g_loss, g_params))
+    update(state.g_optim, g_params, g_loss)
     metrics["g"] = g_loss.detach()
 
     # ---- lazy path-length regularization ----
     mean_path_length = state.mean_path_length
     metrics["path"] = metrics["path_length"] = zero
     if state.step % cfg.g_reg_every == 0:
-        pb = path_batch_size(cfg, real.shape[0])
+        # the path batch is the global batch's first rows
         with torch.no_grad():
-            pyramid = g.normal_pyramid((vert_g[:pb], norm_g[:pb], tri))
-        w = [g.get_latent(z) for z in draws.p_styles.styles()]
-        latent = _mix_styles(w, g.n_latent, draws.p_styles.inject, None, None)
+            pyramid = g.normal_pyramid((vert_all[path_rows], norm_all[path_rows], tri))
+        w = [g.get_latent(z) for z in local.p_styles.styles()]
+        latent = _mix_styles(w, g.n_latent, local.p_styles.inject, None, None)
 
         def synth(lat, *maps):
-            return g.synthesize(lat, list(maps), noise=draws.p_noise)
+            return g.synthesize(lat, list(maps), noise=local.p_noise)
 
-        pl = losses.path_lengths_multi(synth, draws.p_probe, (latent, *pyramid))
+        pl = gather(losses.path_lengths_multi(synth, local.p_probe, (latent, *pyramid)))
         penalty, mean_path_length = losses.path_regularize(pl, state.mean_path_length)
-        _adam_step(state.g_optim, g_params,
-                   _grads(cfg.path_regularize * cfg.g_reg_every * penalty, g_params))
+        update(state.g_optim, g_params, cfg.path_regularize * cfg.g_reg_every * penalty)
         metrics["path"] = penalty.detach()
         metrics["path_length"] = pl.detach().mean()
     metrics["mean_path_length"] = mean_path_length
 
     # ---- the finite screen, then the EMA ----
-    if all_finite(metrics.values(), g_params + d_params):
+    if all_finite(metrics.values(), g_params + d_params, mesh):
         ema_update(list(state.g_ema.parameters()), g_params, cfg.ema_decay)
         state.mean_path_length = mean_path_length
         state.ada_p, state.ada_signs, state.ada_count = ada_p, ada_signs, ada_count

@@ -8,6 +8,11 @@ plus ``step``, ``mean_path_length``, ``ada_signs``, ``ada_count``,
 ``nonfinite_count`` and ``rng`` (the step generator's state), so a resumed
 run takes the very next step the saved one would have. Files are written
 under a temporary name and renamed; the newest ``max_to_keep`` stay.
+
+Across ranks (``parallel/mesh.py``) the state is replicated: rank 0
+writes, every rank waits at a barrier after the write, and every rank
+loads the same file into its own copy (``load_checkpoint`` maps it to the
+state's device).
 """
 
 from __future__ import annotations
@@ -36,11 +41,18 @@ def _path(ckpt_dir: str, step: int) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state, cfg: TrainConfig,
-                    max_to_keep: int = 5) -> str:
+                    max_to_keep: int = 5, mesh=None) -> str:
     """Save ``state`` as step ``step``; delete all but the newest
-    ``max_to_keep`` checkpoints. Returns the file written."""
+    ``max_to_keep`` checkpoints. Returns the file written. With ``mesh``,
+    rank 0 writes and every rank returns after the file is in place."""
     if max_to_keep < 1:
         raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+    if mesh is not None:
+        path = _path(ckpt_dir, step)
+        if mesh.is_main:
+            path = save_checkpoint(ckpt_dir, step, state, cfg, max_to_keep)
+        mesh.barrier()
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "g": state.g.state_dict(),

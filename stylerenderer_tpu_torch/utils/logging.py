@@ -5,7 +5,9 @@
 through a raw ``O_APPEND`` descriptor, one ``os.write`` per row (no
 buffered file object whose tail a crash could lose), and mirrors the rows
 to tensorboardX when it is installed and to wandb when asked.
-``StepTimer`` tracks the rolling step time and images per second.
+Across ranks only rank 0 writes (``rank``: other ranks' loggers
+write nothing). ``StepTimer`` tracks the rolling step time and images
+per second, of the global batch that its caller names.
 ``trace_ctx`` names a span in a profiler trace; ``start_profiler_trace``
 and ``stop_profiler_trace`` bracket one ``torch.profiler`` trace of the
 process (CPU, and the card's kernels when there is one) and write it as a
@@ -28,7 +30,10 @@ _TRACE: dict[str, Any] = {}
 
 class MetricsLogger:
     def __init__(self, log_dir: str, use_wandb: bool = False,
-                 project: str = "stylerenderer-tpu"):
+                 project: str = "stylerenderer-tpu", rank: int = 0):
+        self._fd = None
+        if rank != 0:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._fd = os.open(os.path.join(log_dir, "metrics.jsonl"),
                            os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
@@ -50,6 +55,8 @@ class MetricsLogger:
             self._wandb = wandb
 
     def log(self, step: int, data: dict[str, Any]) -> None:
+        if self._fd is None:
+            return
         clean = {}
         for k, v in data.items():
             try:
@@ -68,7 +75,10 @@ class MetricsLogger:
             self._wandb.log(clean, step=step)
 
     def close(self) -> None:
+        if self._fd is None:
+            return
         os.close(self._fd)
+        self._fd = None
         if self._tb is not None:
             self._tb.close()
 
@@ -97,6 +107,8 @@ class StepTimer:
         return sum(self._times) / len(self._times) if self._times else 0.0
 
     def images_per_sec(self, batch: int) -> float:
+        """``batch`` (the global batch, across ranks) over the mean step
+        time."""
         t = self.mean_step_time
         return batch / t if t > 0 else 0.0
 

@@ -491,7 +491,7 @@ def test_port_imports_without_jax():
         "supervisors.landmark", "supervisors.recognition", "supervisors.hub",
         "supervisors.convert", "face3d.alignment", "face3d.io", "face3d.morphable",
         "face3d.transforms", "data.prepare", "data.dataset", "cli.align",
-        "cli.prepare_data")} <= set(mods)
+        "cli.prepare_data", "parallel", "parallel.mesh")} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert not any(k == 'stylerenderer_tpu' or k.startswith('stylerenderer_tpu.')"

@@ -979,3 +979,57 @@ def test_cuda_n_stylemap_matches_cpu(cuda):
         assert torch.equal(a, b)
     assert float(img_c.abs().max()) > 1e-3
     torch.testing.assert_close(img_g, img_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_world1_nccl_step_equals_no_group(cuda, monkeypatch):
+    """A step at world 1 under NCCL (``make_mesh`` as rank 0 of 1) is the
+    step without a group, bit for bit: every metric, and every parameter,
+    Adam moment and statistic after a step with R1 and the path term. The
+    collectives then copy, and the gradient average divides by 1. The
+    test takes deterministic algorithms (by default ``mesh_point_normal``'s
+    ``index_add`` sums with atomics, and cuDNN may pick nondeterministic
+    algorithms), and two steps without a group are held equal first, so
+    that a difference can only come from the mesh."""
+    from torch_parallel import free_port
+
+    from stylerenderer_tpu_torch.parallel import make_mesh
+    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.utils.config import TrainConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = TrainConfig(size=32, latent=64, n_mlp=2, channel_multiplier=1, batch=4,
+                      d_reg_every=1, g_reg_every=1)
+    face, tri = synthetic_face(12, 24, 4, 2, device=cuda)
+    real = torch.rand(4, 3, 32, 32, generator=torch.Generator(cuda).manual_seed(4),
+                      device=cuda) * 2 - 1
+
+    def run(mesh):
+        st = init_train_state(cfg, cuda)
+        draws = sample_draws(torch.Generator(cuda).manual_seed(3), cfg, face, 4, st.g.n_latent)
+        m = train_step(st, real, draws, cfg, face, tri, mesh=mesh)
+        tensors = [t for mod in (st.g, st.d, st.g_ema) for t in mod.state_dict().values()]
+        tensors += [t for o in (st.g_optim, st.d_optim) for s in o.state.values()
+                    for t in s.values()]
+        tensors += [st.mean_path_length, st.ada_p]
+        return m, tensors, st.step
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    mesh = make_mesh("cuda", rank=0, world_size=1, init_method=f"tcp://localhost:{free_port()}")
+    try:
+        assert mesh.backend == "nccl" and mesh.group is not None
+        runs = [run(None), run(None), run(mesh)]
+    finally:
+        mesh.destroy()
+        torch.use_deterministic_algorithms(was)
+    m0, t0, s0 = runs[0]
+    assert s0 == 1 and float(m0["r1"]) != 0 and float(m0["path"]) != 0
+    for what, (m, ts, s) in zip(("again without a group", "world 1 under NCCL"), runs[1:]):
+        assert s == s0 and m.keys() == m0.keys(), what
+        for k in m0:
+            assert torch.equal(torch.as_tensor(m[k]), torch.as_tensor(m0[k])), (what, k)
+        for a, b in zip(ts, t0):
+            assert torch.equal(a, b), what
