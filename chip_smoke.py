@@ -72,6 +72,14 @@ entry points a user calls, and prints what it measured:
   at the doubled batch to 1e-4; each rank's K1 launches counted), and
   each kind of step timed at world 1 with and without the group, with
   the collectives' time;
+- spatial sharding (phase 4m, ``parallel/spatial.py``): K1 by band of
+  tile rows against the whole launch cut to the band and against its
+  plain version, timed beside its bound; a 1 x 1 mesh under NCCL
+  bit-equal to no mesh; four gloo ranks on the card laid out 2 x 2 and
+  1 x 4 (``make_mesh_2d``), the full-width GAR at global B=16 and
+  ``Discriminator(256)`` on their bands against world 1 (images, logits,
+  gradients), each rank's K1 launches, the banded forward and its halo
+  exchanges timed;
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
   training phase's checkpoint (``--ckpt``).
 
@@ -114,6 +122,14 @@ SYNTH_IMAGES = 64
 TRAIN_STEPS = 5    # through the CLI: R1 + path, plain x3, path
 TRAIN_REPS = 3     # timed steps of each kind afterwards
 PAR_REPS = 1       # phase 4l: timed steps of each kind in each turn
+# phase 4m: the meshes over four ranks, the timed banded forwards, and the
+# parameters whose reduced gradients are held to world 1's (a band conv's
+# and the replicated tail's of D; the mapping network's and a band conv's
+# of the GAR)
+SPATIAL_LAYOUTS = ((2, 2), (1, 4))
+SPATIAL_REPS = 3
+SPATIAL_D_PARAMS = ("convs.1.conv1.0.weight", "final_linear.1.weight")
+SPATIAL_G_PARAMS = ("style.1.weight", "convs.6.conv.weight")
 # state.step values that schedule each kind of step at d_reg_every=16,
 # g_reg_every=4
 STEP_KINDS = {"plain": 9, "path": 8, "R1 + path": 16}
@@ -237,10 +253,12 @@ def compare_wins(out, ref, what: str) -> float:
     return float((out - ref).abs().max())
 
 
-def bbox_pairs(torch, dat, n_valid, h, w, n_levels):
+def bbox_pairs(torch, dat, n_valid, h, w, n_levels, rows=None):
     """(pixel, triangle) pairs whose clamped bbox at each level holds the
     pixel, over the valid rows of binned triangles (corner px, py at the
-    top level in columns 0-5)."""
+    top level in columns 0-5); with ``rows = (y0, y1)``, only the pixels of
+    those top-level rows (``y0 >> k`` to ``y1 >> k`` at level k)."""
+    y_lo, y_hi = (0, h) if rows is None else rows
     pairs = 0
     for b in range(dat.shape[0]):
         t = dat[b, : int(n_valid[b])]
@@ -252,8 +270,8 @@ def bbox_pairs(torch, dat, n_valid, h, w, n_levels):
             qx, qy = (px * inv + sh, py * inv + sh) if k else (px, py)
             x0 = torch.clamp(torch.ceil(qx.amin(-1)), min=0.0)
             x1 = torch.clamp(torch.floor(qx.amax(-1)), max=wl - 1.0)
-            y0 = torch.clamp(torch.ceil(qy.amin(-1)), min=0.0)
-            y1 = torch.clamp(torch.floor(qy.amax(-1)), max=hl - 1.0)
+            y0 = torch.clamp(torch.ceil(qy.amin(-1)), min=float(y_lo >> k))
+            y1 = torch.clamp(torch.floor(qy.amax(-1)), max=min(hl, y_hi >> k) - 1.0)
             n = torch.clamp(x1 - x0 + 1, min=0) * torch.clamp(y1 - y0 + 1, min=0)
             pairs += int(n.double().sum())
     return pairs
@@ -266,20 +284,22 @@ def bound(nbytes: int, ops: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(torch, dat, starts, top, n_levels, n_attr):
+def k1_bound(torch, dat, starts, top, n_levels, n_attr, rows=None):
     """Least time for K1's work on these inputs: (bound_ms, bound_by, bytes,
     operations, pairs, valid triangles). Bytes: the rows of the valid
     binned triangles (data and id) read once, the segment starts, and the
     maps written once; invalid triangles are sorted past every tile's
     segments and never read. Operations: the candidate math for every
     (pixel, triangle) pair whose clamped bbox at that level holds the
-    pixel, plus one setup per (valid triangle, level)."""
+    pixel, plus one setup per (valid triangle, level). With a band of
+    top-level ``rows`` (and the binning of that band), its pixels only."""
     B, nf, R = dat.shape
-    pixels = B * sum((top >> k) ** 2 for k in range(n_levels))
+    y0, y1 = (0, top) if rows is None else rows
+    pixels = B * sum((top >> k) * ((y1 >> k) - (y0 >> k)) for k in range(n_levels))
     n_valid = starts[:, -1].long()  # invalid triangles sort past the last key
     nbytes = (int(n_valid.sum()) * (R + 1) * 4 + starts.numel() * 4
               + pixels * 4 * (1 + n_attr))
-    pairs = bbox_pairs(torch, dat, n_valid, top, top, n_levels)
+    pairs = bbox_pairs(torch, dat, n_valid, top, top, n_levels, rows)
     setups = int(n_valid.sum()) * n_levels
     ops = pairs * (OPS_PER_PAIR_BASE + OPS_PER_PAIR_CHANNEL * n_attr) + setups * OPS_PER_SETUP
     return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
@@ -298,15 +318,16 @@ def k2_bound(torch, dat, starts, h, w):
     return (*bound(nbytes, ops), nbytes, ops, pairs, int(n_valid.sum()))
 
 
-def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=TOP, tile=TILE):
+def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=TOP, tile=TILE,
+               band=None):
     """K1 at these shapes (top ``top``, tile ``tile``, values of ``norm`` or
-    winners only): the card's binning held against the plain binning (keys
-    and starts equal), then timed with CUDA events over many launches
-    after a warm-up: the plain binning, the card's binning (its launches
-    replayed from a CUDA graph, and per call with the host in the loop),
-    the kernel; the bound from the plain binning's output; the kernel's
-    launch shape (threads, shared memory, registers, spills, resident
-    blocks per SM)."""
+    winners only, the band of tile rows ``band`` or the whole image): the
+    card's binning held against the plain binning (keys and starts equal),
+    then timed with CUDA events over many launches after a warm-up: the
+    plain binning, the card's binning (its launches replayed from a CUDA
+    graph, and per call with the host in the loop), the kernel; the bound
+    from the plain binning's output; the kernel's launch shape (threads,
+    shared memory, registers, spills, resident blocks per SM)."""
     import ctypes
 
     from stylerenderer_tpu_torch.ops import _build
@@ -315,9 +336,10 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=TOP, tile
     )
 
     n_attr = 0 if norm is None else norm.shape[-1]
-    dat, ids, starts = build_bins_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm)
+    dat, ids, starts = build_bins_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm,
+                                        band=band)
     rows, cstarts, slots, keys = launch_bin_multi(vert, tri, top, n_levels, False, EPS, tile,
-                                                  attrs=norm)
+                                                  attrs=norm, band=band)
     if not torch.equal(cstarts, starts):
         raise AssertionError(f"K1 {n_levels} levels: the card's starts differ from the plain "
                              "binning's")
@@ -326,15 +348,16 @@ def k1_measure(torch, np, vert, tri, n_levels, norm, keys_of_bins, top=TOP, tile
         raise AssertionError(f"K1 {n_levels} levels: the card's keys differ from the plain "
                              "binning's")
     plain_bins_ms = cuda_ms(torch, lambda: build_bins_multi(vert, tri, top, n_levels, False,
-                                                            EPS, tile, attrs=norm), 5)
+                                                            EPS, tile, attrs=norm, band=band), 5)
     def bin_multi():
-        return launch_bin_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm)
+        return launch_bin_multi(vert, tri, top, n_levels, False, EPS, tile, attrs=norm, band=band)
     bins_ms = graph_ms(torch, bin_multi, 50)
     bins_call_ms = cuda_ms(torch, bin_multi, 50)
     ms = cuda_ms(torch, lambda: launch_rasterize_multi(rows, cstarts, slots, top, n_levels, tile,
-                                                       n_attr, False, EPS), 50)
+                                                       n_attr, False, EPS, band), 50)
+    rows_top = None if band is None else (band[0] * tile, (band[0] + band[1]) * tile)
     bound_ms, by, nbytes, ops, pairs, n_valid = k1_bound(torch, dat, starts, top, n_levels,
-                                                         n_attr)
+                                                         n_attr, rows_top)
     shape = (ctypes.c_int * 6)()
     rc = _build.library("multi").sr_rasterize_multi_shape(top, n_levels, tile, n_attr, shape)
     if rc != 0:
@@ -2331,6 +2354,187 @@ def parallel_phase(torch, np, dev, smi, shard, work, run_path, path_launches, ch
 
 
 
+def spatial_phase(torch, np, dev, smi, work, face, tri, path_launches, keys_of_bins):
+    """Phase 4m: spatial sharding (``parallel/spatial.py``) on the one card.
+    (a) K1 by band on the production mesh at B=16, 7 levels, C=3: every
+    band of 2 and of 4 bit-equal to the whole image's launch cut to it;
+    band 1 of 4 bit-equal to its plain version, and timed beside its bound
+    with its binning held to the plain binning of the band; (b) world 1 in
+    this process, TF32 off: ``GeneratorWithMap(256, 512, 8)`` f32 at B=16
+    with given noise, its forward timed, and a 1 x 1 mesh under NCCL
+    bit-equal to no mesh (the image and ``Discriminator(256)``'s logits of
+    it, deterministic algorithms); (c) four gloo ranks on the card (NCCL
+    refuses two ranks on one device), laid out 2 x 2 and 1 x 4, the same
+    GAR at global B=16 and D on world 1's images, TF32 off, against world 1
+    to 1e-4 of each tensor's largest magnitude: the image bands, the
+    logits, D's block gradient and a few reduced parameter gradients; the
+    vertex and normal gradients to 1e-3, beside world 1's own spread
+    between two runs; each rank's K1 launches (once, banded, a
+    GAR forward); the banded forward's ms on each rank and its
+    collectives' calls and ms. Four ranks share one card, so the times say
+    nothing of a speed-up between cards. -> the banded K1's numbers for the
+    kernels line."""
+    from torch_parallel import Ranks, free_port
+
+    from stylerenderer_tpu_torch.face3d import mesh_point_normal, random_apply_pose3D
+    from stylerenderer_tpu_torch.models import Discriminator, GeneratorWithMap, make_noise
+    from stylerenderer_tpu_torch.ops.rasterize_multi import (
+        band_level_rows, rasterize_winners_multi, rasterize_winners_multi_ref, space_band,
+    )
+    from stylerenderer_tpu_torch.parallel import make_mesh_2d
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(21)
+    vert = random_apply_pose3D(g, face(face.random_input(BATCH, g)))
+    norm = mesh_point_normal(vert, tri)
+
+    # ---- (a) K1 by band
+    full = rasterize_winners_multi(vert, tri, TOP, N_LEVELS, attrs=norm)
+    for n in (2, 4):
+        for i in range(n):
+            t, band = space_band(TOP, N_LEVELS, n, i)
+            out = rasterize_winners_multi(vert, tri, TOP, N_LEVELS, attrs=norm, tile=t, band=band)
+            cut = []
+            for k, (v, w) in enumerate(full):
+                y0, y1 = band_level_rows(TOP, t, band, k)
+                cut.append((v[:, y0:y1], w[:, y0:y1]))
+            compare_multi(out, cut, True, f"K1 band {i} of {n}")
+    k1_tile, k1_band = space_band(TOP, N_LEVELS, 4, 1)
+    k1_rows = f"top-level rows {k1_band[0] * k1_tile}..{(k1_band[0] + k1_band[1]) * k1_tile}"
+    out = rasterize_winners_multi(vert, tri, TOP, N_LEVELS, attrs=norm, tile=k1_tile,
+                                  band=k1_band)
+    ref, plain_ms = once_ms(torch, lambda: rasterize_winners_multi_ref(
+        vert, tri, TOP, N_LEVELS, attrs=norm, tile=k1_tile, band=k1_band))
+    band_err = compare_multi(out, ref, True, "K1 band 1 of 4 against its plain version")
+    m = k1_measure(torch, np, vert, tri, N_LEVELS, norm, keys_of_bins, tile=k1_tile,
+                   band=k1_band)
+    del full, out, ref
+    log(k1_report(f"phase 4m (a) K1 by band: every band of 2 and of 4 at B={BATCH}, "
+                  f"{N_LEVELS} levels, C=3, bit-equal to the whole image's launch cut to it; "
+                  f"band 1 of 4 ({k1_rows}, tile {k1_tile})", m)
+        + f"; plain version of the band {plain_ms:.1f} ms (once), bit-equal to it")
+
+    # ---- (b) world 1, and a 1 x 1 mesh under NCCL
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = GeneratorWithMap(256, 512, 8, seed=0, device=dev)
+        disc = Discriminator(256, seed=3, device=dev)
+        z = torch.randn(BATCH, 512, generator=g)
+        noise = make_noise(256, 1, g)
+        x_w = 0.5 + torch.rand(BATCH, generator=g)
+        img_w = 0.5 + torch.rand(BATCH, 3, 256, 256, generator=g)
+        args = ([z.to(dev)], (vert, norm, tri))
+        noise_d = [n.to(dev) for n in noise]
+        with torch.no_grad():
+            images = gen(*args, noise=noise_d)[0]
+            fwd_ms = cuda_ms(torch, lambda: gen(*args, noise=noise_d), SPATIAL_REPS)
+        mesh = make_mesh_2d(1, 1, "cuda", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{free_port()}")
+        try:
+            with deterministic(torch), torch.no_grad():
+                same = (torch.equal(gen(*args, noise=noise_d)[0],
+                                    gen(*args, noise=noise_d, device_mesh=mesh)[0])
+                        and torch.equal(disc(images), disc(images, mesh)))
+        finally:
+            mesh.destroy()
+        if not same:
+            raise AssertionError("spatial: a 1 x 1 mesh under NCCL differs from no mesh")
+        log(f"phase 4m (b): GeneratorWithMap(256, 512, 8) f32 (TF32 off) at B={BATCH} with given "
+            f"noise, world 1: forward {fwd_ms:.3f} ms (CUDA events, mean of {SPATIAL_REPS}); a "
+            f"1 x 1 mesh under NCCL (make_mesh_2d(1, 1)) bit-equal to no mesh, the image and "
+            f"Discriminator(256)'s logits, deterministic algorithms")
+
+        # ---- (c) four gloo ranks on the card against world 1
+        spec = dict(device="cuda", backend="gloo", one_card=True, tf32=False, run=["spatial"],
+                    spatial=dict(d=((256,), dict(seed=3)), g=((256, 512, 8), dict(seed=0)),
+                                 x=images.cpu(), x_w=x_w, z=z, vert=vert.cpu(), norm=norm.cpu(),
+                                 tri=tri.cpu(), noise=noise, img_w=img_w,
+                                 layouts=SPATIAL_LAYOUTS, d_params=SPATIAL_D_PARAMS,
+                                 g_params=SPATIAL_G_PARAMS, time=SPATIAL_REPS))
+        t0 = time.perf_counter()
+        ranks = Ranks(4, spec, tempfile.mkdtemp(dir=work), timeout=400)
+        try:
+            x = images.detach().clone().requires_grad_(True)
+            d_params = [p for n, p in disc.named_parameters() if n in SPATIAL_D_PARAMS]
+            logits = disc(x)
+            d_ref = torch.autograd.grad((logits[:, 0] * x_w.to(dev)).sum(), [x] + d_params)
+            g_params = [p for n, p in gen.named_parameters() if n in SPATIAL_G_PARAMS]
+            g_ref = []
+            for _ in range(2):  # twice: world 1's own spread of the raster gradients
+                vv, nn_ = vert.clone().requires_grad_(True), norm.clone().requires_grad_(True)
+                img = gen([z.to(dev)], (vv, nn_, tri), noise=noise_d)[0]
+                g_ref.append([t.cpu() for t in torch.autograd.grad(
+                    (img * img_w.to(dev)).sum(), [vv, nn_] + g_params)])
+            results = ranks.wait()
+        finally:
+            ranks.kill()
+        ranks_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    logits, img = logits.detach().cpu(), img.detach().cpu()
+    d_ref, (g_ref, g_again) = [t.cpu() for t in d_ref], g_ref
+    del gen, disc, images, x, vv, nn_
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    # the raster gradients sum per-pixel cotangents that cancel, and the
+    # gather's backward adds them with atomics: two world-1 runs on an H100
+    # differed by 2.4e-5 of them, and a banded run by 2.4e-4, so they are
+    # held to 1e-3 (world 1's own spread is logged beside); the rest to 1e-4
+    spread = {"vertex gradient": rel(g_again[0], g_ref[0]),
+              "normal gradient": rel(g_again[1], g_ref[1])}
+    tol = {k: 1e-3 for k in spread}
+
+    band_launches, worst = 0, {}
+    for r, rr in enumerate(results):
+        res = rr["spatial"]
+        counts = [res[f"{nd}x{ns}"]["k1"] for nd, ns in SPATIAL_LAYOUTS]
+        path_launches[f"spatial rank {r}"] = {"rasterize_multi": sum(c[0] for c in counts),
+                                              "rasterize_single": 0}
+        band_launches += sum(c[1] for c in counts)
+        for (nd, ns), c in zip(SPATIAL_LAYOUTS, counts):
+            o = res[f"{nd}x{ns}"]
+            if c != (1, 1) or rr["device"] != "cuda:0":
+                raise AssertionError(f"spatial {nd}x{ns} rank {r}: K1 launches {c} on "
+                                     f"{rr['device']}, expected one banded on cuda:0")
+            rows, band, gband = o["rows"], o["band"], o["gband"]
+            errs = {"image": rel(o["image"], img[rows][:, :, gband]),
+                    "logits": rel(o["logits"], logits[rows]),
+                    "D block gradient": rel(o["d_x_grad"], d_ref[0][rows][:, :, band]),
+                    "vertex gradient": rel(o["vert_grad"], g_ref[0][rows]),
+                    "normal gradient": rel(o["norm_grad"], g_ref[1][rows])}
+            errs.update({f"D {n}": rel(a, b / nd)
+                         for n, a, b in zip(SPATIAL_D_PARAMS, o["d_grads"], d_ref[1:])})
+            errs.update({f"G {n}": rel(a, b / nd)
+                         for n, a, b in zip(SPATIAL_G_PARAMS, o["g_grads"], g_ref[2:])})
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            bad = {k: e for k, e in errs.items() if not e <= tol.get(k, 1e-4)}
+            if bad:
+                raise AssertionError(f"spatial {nd}x{ns} rank {r}: {bad} over the tolerance "
+                                     f"(1e-4, raster gradients 1e-3) of world 1")
+            log(f"phase 4m (c) {nd}x{ns} rank {r} (data {o['data_index']}, space "
+                f"{o['space_index']}; rows {rows.start}..{rows.stop}, image rows "
+                f"{gband.start}..{gband.stop}): banded forward {o['forward_ms']:.3f} ms (host "
+                f"clock, mean of {SPATIAL_REPS}), its collectives {o['collectives']['ms']:.2f} ms "
+                f"in {o['collectives']['calls']} calls (each timed alone); K1 {c[0]} launch, "
+                f"{c[1]} banded")
+    log(f"phase 4m (c): 4 gloo ranks on the one card, 2x2 and 1x4, GeneratorWithMap(256, 512, "
+        f"8) f32 at global B={BATCH} and Discriminator(256) on world 1's images, TF32 off: "
+        f"every check within 1e-4 of world 1's largest magnitude, the vertex and normal "
+        f"gradients within 1e-3 (worst: "
+        + ", ".join(f"{k} {e:.3g}" for k, e in worst.items())
+        + "; world 1 against itself: "
+        + ", ".join(f"{k} {e:.3g}" for k, e in spread.items())
+        + f"); world 1's forward {fwd_ms:.3f} ms; {ranks_s:.1f} s with the spawn. Four ranks "
+        f"share one card: these times measure no speed-up between cards")
+    log(f"phase 4m: {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return dict(m, plain_ms=plain_ms, max_abs_err=band_err, launches=band_launches,
+                band=f"{k1_rows} of {TOP}, tile {k1_tile}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2748,6 +2952,10 @@ def main() -> int:
     parallel_phase(torch, np, dev, smi, os.path.join(work.name, "faces256.srpack"), work.name,
                    run_path, path_launches, check_k1, (synth_face, synth_tri))
 
+    # ---- phase 4m: spatial sharding over torch.distributed --------------------
+    k1_band = spatial_phase(torch, np, dev, smi, work.name, face, tri, path_launches,
+                            keys_of_bins)
+
     # ---- phase 5: a small forward against the CPU ----------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2882,7 +3090,8 @@ def main() -> int:
         "1024 each", "1024 downsample", "1024 downsample unfused", "cli generate 1024",
         "cli generate 1024 truncation", "cli generate 1024 generator", "train bf16", "train ada",
         "binned auto cuda") + tuple(f"script {name}" for name in SCRIPTS) + (
-        "parallel none", "parallel nccl", "parallel gloo rank 0", "parallel gloo rank 1")
+        "parallel none", "parallel nccl", "parallel gloo rank 0", "parallel gloo rank 1") + tuple(
+        f"spatial rank {r}" for r in range(4))
 
     def launches(name):
         return sum(path_launches[p][name] for p in main_paths)
@@ -2903,6 +3112,20 @@ def main() -> int:
         "ms_top1024": k1_1024["ms"],
         "bound_ms_top1024": k1_1024["bound_ms"],
         "plain_ms_top1024_training_mesh_b1": k1_1024["plain_ms"],
+    }, {
+        "name": "rasterize_multi_band",
+        "route": "cuda",
+        "source": "stylerenderer_tpu_torch/csrc/rasterize_multi.cu",
+        "replaces": "stylerenderer_tpu/ops/rasterize_pallas.py:799",
+        "launches": k1_band["launches"],
+        "max_abs_err": k1_band["max_abs_err"],
+        "ms": k1_band["ms"],
+        "plain_ms": k1_band["plain_ms"],
+        "bound_ms": k1_band["bound_ms"],
+        "bound_by": k1_band["bound_by"],
+        "library_ms": None,
+        "bins_ms": k1_band["bins_ms"],
+        "band": k1_band["band"],
     }, {
         "name": "rasterize_single",
         "route": "cuda",

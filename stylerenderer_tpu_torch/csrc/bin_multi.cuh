@@ -53,9 +53,14 @@ SR_HD bool project_tri(const float* vb, int nv, const long long* t3, int w, int 
 }
 
 // The sort key tier * ntiles + home of a triangle with top-level corners
-// px, py (ok: project_tri's verdict), or kTiers * ntiles when it is invalid.
+// px, py (ok: project_tri's verdict), or kTiers * ntiles when it is invalid
+// or its tile rows miss the band [band_lo, band_hi) (all of them: 0, ntx).
+// A pixel a triangle covers, at any level, has its center in the triangle's
+// float bbox and so in one of its tile rows (a sparse pixel's owner is the
+// tile that holds its center), so a triangle that misses the band's tile
+// rows changes none of the band's pixels.
 SR_HD int bin_key(const float px[3], const float py[3], bool ok, int top, int n_levels, int tile,
-                  float eps) {
+                  float eps, int band_lo, int band_hi) {
   const int ntx = top / tile, ntiles = ntx * ntx;
   const float umin = tmin(tmin(px[0], px[1]), px[2]), umax = tmax(tmax(px[0], px[1]), px[2]);
   const float vmin = tmin(tmin(py[0], py[1]), py[2]), vmax = tmax(tmax(py[0], py[1]), py[2]);
@@ -84,6 +89,7 @@ SR_HD int bin_key(const float px[3], const float py[3], bool ok, int top, int n_
   x1 = x1 > x0 ? x1 : x0;
   y1 = y1 > y0 ? y1 : y0;
   const int tx0 = x0 / tile, tx1 = x1 / tile, ty0 = y0 / tile, ty1 = y1 / tile;
+  if (ty1 < band_lo || ty0 >= band_hi) return kTiers * ntiles;
   const int ts = (tx1 - tx0 > ty1 - ty0 ? tx1 - tx0 : ty1 - ty0) + 1;
   const float sgn = det < 0.0f ? -1.0f : 1.0f;
   const bool deg = det * sgn <= thr;

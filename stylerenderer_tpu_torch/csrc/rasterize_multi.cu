@@ -22,6 +22,15 @@
 // Output, level-major: vals [L][B, s, s, C] f32 (0 on background) and wins
 // [L][B, s, s] i32 (-1 on background).
 //
+// A band of top-level tile rows [ty0, ty0 + nty) (the spatial sharding of
+// parallel/spatial.py: each rank renders its rows of every level) restricts
+// both: the binning keeps only the triangles whose tile rows meet the band
+// (sr::bin_key), the grid covers only the band's tiles, and level k's output
+// is its rows [ty0 * tile >> k, (ty0 + nty) * tile >> k), [B, (nty * tile)
+// >> k, s]. A tile's pixels at every level, dense or sparse, lie in the
+// level rows of its own tile row (sr::row_pixel), so each band pixel is
+// computed exactly as in the full launch.
+//
 // What bounds it on this card: the bytes it must move are the valid rows
 // read once plus the maps written once, tens of microseconds at B=16 on the
 // 100k-triangle face mesh at 3.35 TB/s; the useful candidate math (pixels
@@ -87,7 +96,8 @@ constexpr int kBinThreads = 256;
 __global__ void bin_classify(const float* __restrict__ v, const long long* __restrict__ tri,
                              int* __restrict__ keys, int* __restrict__ rank,
                              int* __restrict__ counts, int B, int nv, int nf, int top,
-                             int n_levels, int tile, int perspective, float eps) {
+                             int n_levels, int tile, int ty0, int nty, int perspective,
+                             float eps) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * nf) return;
   const int b = (int)(i / nf), f = (int)(i - (long long)b * nf);
@@ -95,7 +105,7 @@ __global__ void bin_classify(const float* __restrict__ v, const long long* __res
   float px[3], py[3], z[3];
   const bool ok = sr::project_tri(v + (size_t)b * nv * 3, nv, tri + 3 * (size_t)f, top,
                                   top, perspective != 0, eps, px, py, z);
-  const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps);
+  const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps, ty0, ty0 + nty);
   keys[i] = key;
   if (key < K) rank[i] = sr::segment_slot(counts, b * K + key);
 }
@@ -127,13 +137,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
                        const int* __restrict__ slots, float* __restrict__ vals,
                        int* __restrict__ wins, int B, int nf, int top, int n_levels, int tile,
-                       int nrows, int perspective, float eps) {
+                       int nrows, int ty0, int nty, int perspective, float eps) {
   constexpr int RP = sr::row_words(C), R = sr::kRaw + 3 * C;
   extern __shared__ unsigned long long s_key[];  // [nrows]: the tile's z-buffer
   __shared__ sr::LevelTile s_lt[sr::kMaxLevels];
   const int tid = threadIdx.x;
   const int ntx = top / tile, ntiles = ntx * ntx;
-  const int tx = blockIdx.x % ntx, ty = blockIdx.x / ntx;
+  const int tx = blockIdx.x % ntx, ty = ty0 + blockIdx.x / ntx;
   const int b = blockIdx.y;
 
   // the worklist's bounds in shared memory: 12 registers fewer per thread
@@ -215,7 +225,7 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
     const int k = sr::row_pixel(r, top, tile, n_levels, tx, ty, X, Y, live);
     if (!live) continue;
     const int s = top >> k;
-    const size_t pix = (size_t)sr::level_pixels_before(top, k) * B + ((size_t)b * s + Y) * s + X;
+    const size_t pix = (size_t)sr::band_pixel(top, tile, ty0, nty, B, b, k, X, Y);
     const unsigned long long key = s_key[r];
     const int id = sr::key_winner(key);
     wins[pix] = id;
@@ -231,7 +241,7 @@ rasterize_multi_kernel(const float* __restrict__ rows, const int* __restrict__ s
 }
 
 using Kernel = void (*)(const float*, const int*, const int*, float*, int*, int, int, int, int,
-                        int, int, int, float);
+                        int, int, int, int, int, float);
 
 Kernel kernel_for(int n_attr) {
   switch (n_attr) {
@@ -260,7 +270,8 @@ Kernel prepare(int B, int top, int n_levels, int tile, int n_attr, size_t& smem)
 
 }  // namespace
 
-// The binning passes on `stream`; they allocate nothing. counts [B, K] must
+// The binning passes on `stream` for the band [ty0, ty0 + nty) of tile rows
+// (0, top / tile: the whole image); they allocate nothing. counts [B, K] must
 // be zero; keys, rank [B, nf], starts [B, K+1], rows [B, nf,
 // row_words(n_attr)] and slots [B, nf] (each valid triangle's row) are
 // written (rows past starts[b][K] and invalid triangles' slots are not). attrs
@@ -270,9 +281,10 @@ extern "C" int sr_bin_multi(const float* v, const long long* tri, const float* a
                             int* counts, int* keys, int* rank, int* starts, float* rows,
                             int* slots, int B,
                             int nv, int nf, int top, int n_levels, int tile, int n_attr,
-                            int perspective, float eps, void* stream) {
+                            int perspective, int ty0, int nty, float eps, void* stream) {
   if (B < 1 || nv < 1 || nf < 0 || tile < 1 || top % tile || n_levels < 1 ||
-      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7 || (n_attr > 0 && !attrs))
+      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7 || (n_attr > 0 && !attrs) ||
+      !sr::band_ok(top, n_levels, tile, ty0, nty))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int K = sr::kTiers * (top / tile) * (top / tile);
@@ -280,7 +292,7 @@ extern "C" int sr_bin_multi(const float* v, const long long* tri, const float* a
   const unsigned blocks = (unsigned)((n + kBinThreads - 1) / kBinThreads);
   if (n > 0)
     bin_classify<<<blocks, kBinThreads, 0, st>>>(v, tri, keys, rank, counts, B, nv, nf, top,
-                                                 n_levels, tile, perspective, eps);
+                                                 n_levels, tile, ty0, nty, perspective, eps);
   sr::bin_scan<<<B, sr::kScanThreads, 0, st>>>(counts, starts, K);
   if (n > 0)
     bin_scatter<<<blocks, kBinThreads, 0, st>>>(v, tri, attrs, keys, rank, starts, rows, slots,
@@ -288,20 +300,20 @@ extern "C" int sr_bin_multi(const float* v, const long long* tri, const float* a
   return (int)cudaGetLastError();
 }
 
-// The rasterizer on `stream` over sr_bin_multi's rows, starts and slots;
-// allocates nothing. Returns cudaGetLastError() after the launch (0 on
-// success).
+// The rasterizer on `stream` over sr_bin_multi's rows, starts and slots (of
+// the same band), for the tiles of the band [ty0, ty0 + nty); allocates
+// nothing. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int sr_rasterize_multi(const float* rows, const int* starts, const int* slots,
                                   float* vals, int* wins, int B, int nf, int top, int n_levels,
-                                  int tile, int n_attr, int perspective, float eps,
-                                  void* stream) {
+                                  int tile, int n_attr, int perspective, int ty0, int nty,
+                                  float eps, void* stream) {
   size_t smem;
   const Kernel kernel = prepare(B, top, n_levels, tile, n_attr, smem);
-  if (!kernel) return (int)cudaErrorInvalidValue;
+  if (!kernel || !sr::band_ok(top, n_levels, tile, ty0, nty)) return (int)cudaErrorInvalidValue;
   const int ntx = top / tile;
-  kernel<<<dim3(ntx * ntx, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(ntx * nty, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       rows, starts, slots, vals, wins, B, nf, top, n_levels, tile, sr::tile_rows(tile, n_levels),
-      perspective, eps);
+      ty0, nty, perspective, eps);
   return (int)cudaGetLastError();
 }
 

@@ -459,11 +459,32 @@ SR_HD int segment_pos(int q, const int lo[N], const int hi[N]) {
   return -1;
 }
 
-// Offset, in pixels per batch item, of level k in the level-major output.
-SR_HD long long level_pixels_before(int top, int k) {
+// A band of top-level tile rows [ty0, ty0 + nty) that is whole rows at every
+// level: level k renders its rows [ty0 * tile >> k, (ty0 + nty) * tile >> k).
+// The full image is the band (0, top / tile).
+SR_HD bool band_ok(int top, int n_levels, int tile, int ty0, int nty) {
+  if (ty0 < 0 || nty < 1 || ty0 + nty > top / tile) return false;
+  for (int k = 0; k < n_levels; ++k)
+    if ((ty0 * tile) % (1 << k) || (nty * tile) % (1 << k)) return false;
+  return true;
+}
+
+// Offset, in pixels per batch item, of level k in the level-major output of
+// a band `rows` top-level pixel rows high (top for the whole image).
+SR_HD long long level_pixels_before(int top, int rows, int k) {
   long long n = 0;
-  for (int j = 0; j < k; ++j) n += (long long)(top >> j) * (top >> j);
+  for (int j = 0; j < k; ++j) n += (long long)(top >> j) * (rows >> j);
   return n;
+}
+
+// Where pixel (X, Y) of level k (Y a row of the level's whole image, inside
+// the band) of batch item b goes in the level-major output of the band
+// [ty0, ty0 + nty): level k holds [B, (nty * tile) >> k, top >> k].
+SR_HD long long band_pixel(int top, int tile, int ty0, int nty, int B, int b, int k, int X,
+                           int Y) {
+  const int rows = nty * tile, s = top >> k;
+  const int hk = rows >> k, yk = (ty0 * tile) >> k;
+  return level_pixels_before(top, rows, k) * B + ((long long)b * hk + (Y - yk)) * s + X;
 }
 
 }  // namespace sr

@@ -16,15 +16,17 @@
 #include "bin_multi.cuh"
 #include "rasterize_multi.cuh"
 
-// The card's three binning passes in one: keys [B, nf], starts [B, K+1],
-// rows [B, nf, row_words(C)] and slots [B, nf] (rows past starts[b][K] and
-// invalid triangles' slots are not written).
+// The card's three binning passes in one, for the band [ty0, ty0 + nty) of
+// tile rows: keys [B, nf], starts [B, K+1], rows [B, nf, row_words(C)] and
+// slots [B, nf] (rows past starts[b][K] and invalid triangles' slots are
+// not written).
 extern "C" int sr_bin_multi_host(const float* v, const long long* tri, const float* attrs,
                                  int* keys, int* starts, float* rows, int* slots, int B, int nv,
                                  int nf, int top, int n_levels, int tile, int n_attr,
-                                 int perspective, float eps) {
+                                 int perspective, int ty0, int nty, float eps) {
   if (B < 1 || nv < 1 || nf < 0 || tile < 1 || top % tile || n_levels < 1 ||
-      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7)
+      n_levels > sr::kMaxLevels || n_attr < 0 || n_attr > 7 ||
+      !sr::band_ok(top, n_levels, tile, ty0, nty))
     return 1;
   const int ntx = top / tile, K = sr::kTiers * ntx * ntx, RP = sr::row_words(n_attr);
   std::vector<int> rank((size_t)nf);
@@ -35,7 +37,7 @@ extern "C" int sr_bin_multi_host(const float* v, const long long* tri, const flo
       float px[3], py[3], z[3];
       const bool ok = sr::project_tri(vb, nv, tri + 3 * (size_t)f, top, top, perspective != 0,
                                       eps, px, py, z);
-      const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps);
+      const int key = sr::bin_key(px, py, ok, top, n_levels, tile, eps, ty0, ty0 + nty);
       keys[(size_t)b * nf + f] = key;
       if (key < K) rank[f] = count[key]++;
     }
@@ -56,18 +58,20 @@ extern "C" int sr_bin_multi_host(const float* v, const long long* tri, const flo
   return 0;
 }
 
-// The rasterizer with rounds of `round` candidates and a queue of `queue`
-// items (0: the card's, sr::kRound and sr::kQueue). Returns how many times,
-// over all tiles, a full queue was worked through between rounds (>= 0), or
-// -1 when the arguments are refused.
+// The rasterizer over the tiles of the band [ty0, ty0 + nty), with rounds of
+// `round` candidates and a queue of `queue` items (0: the card's, sr::kRound
+// and sr::kQueue). Returns how many times, over the band's tiles, a full
+// queue was worked through between rounds (>= 0), or -1 when the arguments
+// are refused.
 extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, const int* slots,
                                        float* vals, int* wins, int B, int nf, int top,
                                        int n_levels, int tile, int n_attr, int perspective,
-                                       float eps, int round, int queue) {
+                                       int ty0, int nty, float eps, int round, int queue) {
   if (round == 0) round = sr::kRound;
   if (queue == 0) queue = sr::kQueue;
   if (B < 1 || tile < 1 || top % tile || n_levels < 1 || n_levels > sr::kMaxLevels ||
-      n_attr < 0 || n_attr > 7 || round < 1 || queue < round * (n_levels - 1))
+      n_attr < 0 || n_attr > 7 || round < 1 || queue < round * (n_levels - 1) ||
+      !sr::band_ok(top, n_levels, tile, ty0, nty))
     return -1;
   const int RP = sr::row_words(n_attr), R = sr::kRaw + 3 * n_attr;
   const int ntx = top / tile, ntiles = ntx * ntx, nrows = sr::tile_rows(tile, n_levels);
@@ -78,8 +82,8 @@ extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, con
   for (int b = 0; b < B; ++b) {
     const float* rows_b = rows + (size_t)b * nf * RP;
     auto emit = [&](int r, unsigned long long k) { key[r] = k > key[r] ? k : key[r]; };
-    for (int tl = 0; tl < ntiles; ++tl) {
-      const int tx = tl % ntx, ty = tl / ntx;
+    for (int tl = 0; tl < ntx * nty; ++tl) {
+      const int tx = tl % ntx, ty = ty0 + tl / ntx;
       for (int k = 0; k < n_levels; ++k) sr::level_tile(top, top, tile, n_levels, k, tx, ty, lt[k]);
       for (auto& x : key) x = 0;
       int lo[sr::kSegments], hi[sr::kSegments];
@@ -122,7 +126,7 @@ extern "C" int sr_rasterize_multi_host(const float* rows, const int* starts, con
         const int k = sr::row_pixel(r, top, tile, n_levels, tx, ty, X, Y, live);
         if (!live) continue;
         const int s = top >> k;
-        const long long pix = sr::level_pixels_before(top, k) * B + ((long long)b * s + Y) * s + X;
+        const long long pix = sr::band_pixel(top, tile, ty0, nty, B, b, k, X, Y);
         const int id = sr::key_winner(key[r]);
         wins[pix] = id;
         float v[7];

@@ -9,6 +9,14 @@ The 4x4 features are flattened in the reference's (C, H, W) order; the
 JAX package flattens (H, W, C), so
 ``utils/weights.py::discriminator_state_dict_from_jax`` permutes the
 columns of ``final_linear.0`` between the two.
+
+On a mesh that splits rows over ``'space'`` (``parallel/mesh.py::
+make_mesh_2d``), ``forward`` takes the rank's block ``[B / n_data, 3,
+H / n_space, W]``: the convolutions, the stddev channel and ``final_conv``
+run on the band, the 4x4 features are gathered over ``'space'``, and
+``final_linear`` runs replicated, its parameters' gradients split over the
+space ranks (``parallel/spatial.py``), so the logits are replicated over
+``'space'``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from stylerenderer_tpu_torch.nn.layers import (
     minibatch_stddev,
     reset_parameters,
 )
+from stylerenderer_tpu_torch.ops.fused_act import fused_leaky_relu
+from stylerenderer_tpu_torch.parallel import spatial
 
 
 class Discriminator(nn.Module):
@@ -60,8 +70,21 @@ class Discriminator(nn.Module):
     def forward(self, x, mesh=None):
         """Logits of ``x``; with ``mesh``, ``x`` is a rank's rows of the
         global batch and the minibatch-stddev groups are the global
-        batch's (``minibatch_stddev``)."""
-        out = self.convs(x.to(self.dtype))
-        out = minibatch_stddev(out, self.stddev_group, self.stddev_feat, mesh)
-        out = self.final_conv(out)
-        return self.final_linear(out.reshape(out.shape[0], -1))
+        batch's (``minibatch_stddev``); on a mesh with ``n_space > 1``,
+        ``x`` is the rank's block and the logits of its rows are replicated
+        over ``'space'``."""
+        with spatial.sharded(mesh):  # nothing without a 'space' split
+            out = self.convs(x.to(self.dtype))
+            out = minibatch_stddev(out, self.stddev_group, self.stddev_feat, mesh)
+            out = self.final_conv(out)
+        if mesh is None or mesh.n_space == 1:
+            return self.final_linear(out.reshape(out.shape[0], -1))
+        out = spatial.gather_space(out, mesh)
+        out = out.reshape(out.shape[0], -1)
+        for lin in self.final_linear:  # EqualLinear's forward, on replicated features
+            y = spatial.replicated_linear(out.to(lin.dtype), (lin.weight * lin.scale).to(lin.dtype),
+                                          mesh)
+            b = spatial.split_grad(lin.bias * lin.lr_mul, mesh)
+            out = (fused_leaky_relu(y, b, dim=-1) if lin.activation == "fused_lrelu"
+                   else y + b.to(y.dtype))
+        return out

@@ -24,10 +24,22 @@ checkpointed conv, in the order and shapes the plain run draws it, because
 the recompute restores only the global RNG states, not a caller's
 ``torch.Generator``: a generator gives the same images with ``remat`` on
 and off.
+
+``GeneratorWithMap`` takes a ``device_mesh`` (``parallel/mesh.py::
+make_mesh_2d``; the name ``mesh`` is the face mesh's): on one that splits
+rows over ``'space'``, the mapping network and the styles are replicated,
+the normal pyramid is rendered band by band (``rasterize_pyramid_fused``
+with the mesh: the multi-level kernel on the band's tiles) and every
+layer runs on the rank's band of rows inside ``parallel/spatial.py::
+sharded``, so the image is the rank's band. The gradients in the styles
+and the mesh's vertices and normals are summed over ``'space'`` where they
+leave (whole on every rank); the parameters' are the band's share, which
+``Mesh.average_gradients`` sums.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -53,6 +65,7 @@ from stylerenderer_tpu_torch.ops.rasterize import (
     rasterize_pyramid_fused,
 )
 from stylerenderer_tpu_torch.ops.resize import resize_linear
+from stylerenderer_tpu_torch.parallel import spatial
 
 
 def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
@@ -199,8 +212,11 @@ class _StyleGenerator(nn.Module):
             r = _noise_res(i)
             noise = torch.randn(x.shape[0], 1, r, r, generator=generator,
                                 device=generator.device if generator else x.device)
+        # the recompute runs in the backward, outside the caller's sharded()
+        mesh = spatial.active()
+        fn = conv if mesh is None else functools.partial(_in_band, mesh, conv)
         # the conv draws nothing itself now, so no RNG state to restore
-        return checkpoint(conv, x, *args, noise, use_reentrant=False,
+        return checkpoint(fn, x, *args, noise, use_reentrant=False,
                           preserve_rng_state=False)
 
     def _latent_and_noise(self, styles, input_is_latent, noise, randomize_noise,
@@ -216,6 +232,11 @@ class _StyleGenerator(nn.Module):
         latent = _mix_styles(styles, self.n_latent, inject_index, truncation,
                              truncation_latent)
         return latent, noise
+
+
+def _in_band(mesh, conv, *args):
+    with spatial.sharded(mesh):
+        return conv(*args)
 
 
 class Generator(_StyleGenerator):
@@ -357,29 +378,50 @@ class GeneratorWithMap(_StyleGenerator):
         reset_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    def normal_pyramid(self, mesh):
-        """Rasterized normal maps at 4, 8, ..., size, ``[B, s, s, 3]`` each."""
+    def normal_pyramid(self, mesh, device_mesh=None):
+        """Rasterized normal maps at 4, 8, ..., size, ``[B, s, s, 3]`` each
+        (on a ``device_mesh`` that splits rows over ``'space'``, the rank's
+        band of each, ``[B, s / n_space, s, 3]``). Only the fused ``each``
+        pyramid renders by band; the others render every level whole on
+        each space rank and cut the band, as GSPMD does with the JAX
+        package's Pallas calls."""
         vert, norm, tri = mesh
         sizes = [4] + [2 ** i for i in range(3, self.log_size + 1)]
         method = self.rasterize_method
+        if self.pyramid_mode == "each" and self.fused_pyramid:
+            return rasterize_pyramid_fused(vert, norm, tri, sizes, method=method,
+                                           mesh=device_mesh)
+        banded = device_mesh is not None and device_mesh.n_space > 1
+        if banded:
+            vert, norm = spatial.enter_band(vert, device_mesh), spatial.enter_band(norm, device_mesh)
         if self.pyramid_mode == "each":
-            fn = rasterize_pyramid_fused if self.fused_pyramid else rasterize_pyramid
-            return fn(vert, norm, tri, sizes, method=method)
-        if self.fused_pyramid:
-            top = rasterize_pyramid_fused(vert, norm, tri, [self.size], method=method)[0]
+            maps = rasterize_pyramid(vert, norm, tri, sizes, method=method)
         else:
-            top = rasterize(vert, norm, tri, self.size, self.size, method=method)
-        maps = [top]
-        for s in reversed(sizes[:-1]):
-            maps.append(resize_linear(maps[-1], s, s))
-        return maps[::-1]
+            if self.fused_pyramid:
+                top = rasterize_pyramid_fused(vert, norm, tri, [self.size], method=method)[0]
+            else:
+                top = rasterize(vert, norm, tri, self.size, self.size, method=method)
+            maps = [top]
+            for s in reversed(sizes[:-1]):
+                maps.append(resize_linear(maps[-1], s, s))
+            maps = maps[::-1]
+        if banded:
+            maps = [m[:, spatial.band_rows(device_mesh, m.shape[1])] for m in maps]
+        return maps
 
     def synthesize(self, latent, norm_maps, noise=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, device_mesh=None):
         """Image ``[B, 3, size, size]`` from per-layer latents
         ``[B, n_latent, D]`` and a normal-map pyramid (smallest first, in the
         rasterizer's ``[B, s, s, C]`` layout). ``noise``: a list of
-        ``[B or 1, 1, res, res]`` maps (``None`` entries draw fresh noise)."""
+        ``[B or 1, 1, res, res]`` maps (``None`` entries draw fresh noise).
+        On a ``device_mesh`` that splits rows over ``'space'``, the maps are
+        the rank's bands, the noise maps whole, and the image is the rank's
+        band."""
+        with spatial.sharded(device_mesh):
+            return self._synthesize(latent, norm_maps, noise, generator)
+
+    def _synthesize(self, latent, norm_maps, noise, generator):
         if noise is None:
             noise = [None] * self.num_layers
         norm_maps = [m.permute(0, 3, 1, 2).to(self.dtype) for m in norm_maps]
@@ -409,14 +451,21 @@ class GeneratorWithMap(_StyleGenerator):
                 truncation: float | None = None, truncation_latent=None,
                 input_is_latent: bool = False, noise=None,
                 randomize_noise: bool = True,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, device_mesh=None):
         """-> (image ``[B, 3, size, size]``, latents or None, normal maps or
         None). ``randomize_noise=False`` with no ``noise`` uses the
-        ``noises.noise_{i}`` buffers."""
+        ``noises.noise_{i}`` buffers. With a ``device_mesh`` (the module's
+        docstring), the image and normal maps are the rank's bands."""
+        if device_mesh is not None and device_mesh.n_space > 1:
+            styles = [spatial.enter_band(s, device_mesh)
+                      for s in (styles if isinstance(styles, (list, tuple)) else [styles])]
         latent, noise = self._latent_and_noise(styles, input_is_latent, noise,
                                                randomize_noise, inject_index, truncation,
                                                truncation_latent)
-        norm_maps = self.normal_pyramid(mesh)
-        image = self.synthesize(latent, norm_maps, noise, generator)
+        # without a mesh, the one-argument call that overrides of
+        # normal_pyramid (and wrappers that record it) take
+        norm_maps = (self.normal_pyramid(mesh) if device_mesh is None
+                     else self.normal_pyramid(mesh, device_mesh))
+        image = self.synthesize(latent, norm_maps, noise, generator, device_mesh)
         return (image, latent if return_latents else None,
                 norm_maps if return_normals else None)

@@ -14,6 +14,18 @@ reference's per-sample weights with a grouped convolution.
 
 ``ConvLayer`` keeps the JAX package's layout: its conv carries a bias
 (``.0.bias``) beside the activation's (``.1.bias``).
+
+Inside ``parallel/spatial.py::sharded(mesh)`` every spatial layer takes
+this rank's band of rows of a map split over ``'space'`` and gives its band
+of the output rows (``spatial.band_ops``: a halo as deep as the layer's
+reach in input rows, its H padding replaced by the plan's): the 3x3 convs,
+the blurs, the FIR up- and downsamples, the three forms of the modulated
+conv (the transposed conv and its blur share one exchange, as do a
+downsampling blur and its stride-2 conv, since the blur's own output
+rows do not split into equal bands), ``NoiseInjection`` (its band of the
+whole map's noise) and ``ConstantInput`` (its band of the 4x4 map).
+Elementwise layers need nothing. Outside a ``sharded``, every layer is as
+before.
 """
 
 from __future__ import annotations
@@ -30,7 +42,13 @@ from stylerenderer_tpu_torch.ops.fused_act import (
     scaled_leaky_relu,
 )
 from stylerenderer_tpu_torch.nn.spectral import SpectralEqualConv2d
-from stylerenderer_tpu_torch.ops.upfirdn2d import downsample2d, make_kernel, upfirdn2d
+from stylerenderer_tpu_torch.ops.upfirdn2d import (
+    downsample2d,
+    make_kernel,
+    upfirdn2d,
+    upfirdn2d_band,
+)
+from stylerenderer_tpu_torch.parallel import spatial
 
 
 class PixelNorm(nn.Module):
@@ -100,8 +118,19 @@ class EqualConv2d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        mesh, k = spatial.active(), self.weight.shape[2]
+        if mesh is not None and (k > 1 or self.stride > 1):
+            h_out = (x.shape[2] * mesh.n_space + 2 * self.padding - k) // self.stride + 1
+            x, ((q0, q1),) = spatial.band_ops(x, [(1, self.stride, k, self.padding)], h_out,
+                                              mesh)
+            return self.conv(spatial.pad_rows(x, q0, q1), (0, self.padding))
+        return self.conv(x, self.padding)
+
+    def conv(self, x, padding):
+        """The scaled conv and its bias, with ``padding`` (an int, or
+        ``(H, W)``)."""
         y = F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype),
-                     stride=self.stride, padding=self.padding)
+                     stride=self.stride, padding=padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[None, :, None, None]
         return y
@@ -119,6 +148,9 @@ class Blur(nn.Module):
         self.pad = tuple(pad)
 
     def forward(self, x):
+        mesh = spatial.active()
+        if mesh is not None:
+            return upfirdn2d_band(x, self.kernel, mesh, pad=self.pad)
         return upfirdn2d(x, self.kernel, pad=self.pad)
 
 
@@ -134,6 +166,9 @@ class Upsample(nn.Module):
         self.pad = ((p + 1) // 2 + factor - 1, p // 2)
 
     def forward(self, x):
+        mesh = spatial.active()
+        if mesh is not None:
+            return upfirdn2d_band(x, self.kernel, mesh, up=self.factor, pad=self.pad)
         return upfirdn2d(x, self.kernel, up=self.factor, down=1, pad=self.pad)
 
 
@@ -146,6 +181,11 @@ class Downsample(nn.Module):
         self.register_buffer("kernel", make_kernel(list(kernel)))
 
     def forward(self, x):
+        mesh = spatial.active()
+        if mesh is not None:
+            p = self.kernel.shape[0] - self.factor
+            return upfirdn2d_band(x, self.kernel, mesh, down=self.factor,
+                                  pad=((p + 1) // 2, p // 2))
         return downsample2d(x, self.kernel, self.factor)
 
 
@@ -183,22 +223,64 @@ class ModulatedConv2d(nn.Module):
         w = self.weight[0] * self.scale  # [out, in, k, k]
         s = self.modulation(style)  # [B, in]
         xs = x * s[:, :, None, None].to(x.dtype)
+        demod = None
         if self.demodulate:
             w2 = torch.sum(w * w, dim=(2, 3))  # [out, in]
             demod = torch.rsqrt((s * s) @ w2.t() + self.eps)  # [B, out]
         ws = w.to(self.dtype)
+        mesh = spatial.active()
+        if mesh is not None:
+            y = self._band(xs, ws, mesh, demod)
+            return y if self.upsample else self._demodulate(y, demod)
         if self.upsample:
             y = F.conv_transpose2d(xs.to(self.dtype), ws.transpose(0, 1), stride=2)
-            if self.demodulate:
-                y = y * demod[:, :, None, None].to(y.dtype)
-            return self.blur(y)
+            return self.blur(self._demodulate(y, demod))
         if self.downsample:
             y = F.conv2d(self.blur(xs).to(self.dtype), ws, stride=2)
         else:
             y = F.conv2d(xs.to(self.dtype), ws, padding=self.kernel_size // 2)
+        return self._demodulate(y, demod)
+
+    def _demodulate(self, y, demod):
         if self.demodulate:
             y = y * demod[:, :, None, None].to(y.dtype)
         return y
+
+    def _band(self, xs, ws, mesh, demod):
+        """The conv of this rank's band ``xs`` (scaled by the style) under
+        ``'space'``: upsampling, the transposed conv (``(2, 1, k, k - 1)``
+        along H, whose own output pads are ``(k - 1, k - 2)``) cropped to
+        the plan, demodulated, then the blur; downsampling, the blur then
+        the stride-2 conv; else the conv with its halo. Demodulation of the
+        latter two is the caller's."""
+        k, h = self.kernel_size, xs.shape[2] * mesh.n_space
+        if self.upsample:
+            kb, (b0, b1) = self.blur.kernel.shape[0], self.blur.pad
+            ops = [(2, 1, k, k - 1), (1, 1, kb, b0)]
+            x, ((q0, q1), (r0, r1)) = spatial.band_ops(xs, ops, 2 * h + k - 2 + b0 + b1 - kb + 1,
+                                                       mesh)
+            y = F.conv_transpose2d(x.to(self.dtype), ws.transpose(0, 1), stride=2)
+            y = self._demodulate(spatial.pad_rows(y, q0 - (k - 1), q1 - (k - 2)), demod)
+            return upfirdn2d(y, self.blur.kernel, pad=(b0, b1, r0, r1))
+        if self.downsample:
+            return F.conv2d(_blur_for_stride2(xs, self.blur, k, mesh).to(self.dtype), ws, stride=2)
+        if k == 1:
+            return F.conv2d(xs.to(self.dtype), ws)
+        x, ((q0, q1),) = spatial.band_ops(xs, [(1, 1, k, k // 2)], h, mesh)
+        return F.conv2d(spatial.pad_rows(x, q0, q1).to(self.dtype), ws, padding=(0, k // 2))
+
+
+def _blur_for_stride2(x, blur, k: int, mesh):
+    """Under ``'space'``: this rank's band ``x`` blurred by ``blur`` (its
+    own pads), with the H rows that a ``k``-tap stride-2 conv without H
+    padding then reads for this rank's band of its output. The blur's own
+    output (H + 1 rows) does not split into equal bands, so the two are
+    planned as one chain and exchanged once."""
+    kb, (b0, b1) = blur.kernel.shape[0], blur.pad
+    h = x.shape[2] * mesh.n_space
+    x, ((r0, r1), (q0, q1)) = spatial.band_ops(
+        x, [(1, 1, kb, b0), (1, 2, k, 0)], (h + b0 + b1 - kb + 1 - k) // 2 + 1, mesh)
+    return spatial.pad_rows(upfirdn2d(x, blur.kernel, pad=(b0, b1, r0, r1)), q0, q1)
 
 
 class NoiseInjection(nn.Module):
@@ -213,10 +295,17 @@ class NoiseInjection(nn.Module):
             self.weight.zero_()
 
     def forward(self, x, noise=None, generator: torch.Generator | None = None):
+        """Under ``'space'``, ``x`` is a band and ``noise`` (given, or drawn
+        here) the whole map's, of which the band's rows are added: ranks
+        that seed ``generator`` alike draw one map."""
+        mesh = spatial.active()
         if noise is None:
             b, _, h, w = x.shape
+            h = h if mesh is None else h * mesh.n_space
             noise = torch.randn(b, 1, h, w, generator=generator,
                                 device=generator.device if generator else x.device)
+        if mesh is not None:
+            noise = noise[:, :, spatial.band_rows(mesh, noise.shape[2])]
         return x + self.weight.to(x.dtype) * noise.to(x.device, x.dtype)
 
 
@@ -233,7 +322,10 @@ class ConstantInput(nn.Module):
             self.input.copy_(torch.randn(self.input.shape, generator=generator))
 
     def forward(self, batch: int):
-        return self.input.repeat(batch, 1, 1, 1)
+        """The map for ``batch`` samples (under ``'space'``, its band)."""
+        mesh = spatial.active()
+        out = self.input.repeat(batch, 1, 1, 1)
+        return out if mesh is None else out[:, :, spatial.band_rows(mesh, out.shape[2])]
 
 
 class _ScaledLeakyReLU(nn.Module):
@@ -248,7 +340,10 @@ class ConvLayer(nn.Sequential):
     ``activate``: ``True`` or ``"lrelu"`` adds the activation, ``False`` (or
     another string) leaves it out; a string holding ``"sp"`` builds the
     spectral-norm conv ``SpectralEqualConv2d`` with no activation, in
-    float32 whatever ``dtype`` (as the JAX package's ``ConvLayer``)."""
+    float32 whatever ``dtype`` (as the JAX package's ``ConvLayer``).
+
+    Downsampling under ``'space'``, the blur and the stride-2 conv run on
+    one halo (``forward``)."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
                  downsample: bool = False, blur_kernel=(1, 3, 3, 1),
@@ -265,6 +360,7 @@ class ConvLayer(nn.Sequential):
             layers.append(SpectralEqualConv2d(in_channel, out_channel, kernel_size, stride,
                                               padding, bias=bias))
             super().__init__(*layers)
+            self.downsample = downsample
             return
         if isinstance(activate, str):
             activate = activate == "lrelu"
@@ -273,6 +369,19 @@ class ConvLayer(nn.Sequential):
         if activate:
             layers.append(FusedLeakyReLU(out_channel) if bias else _ScaledLeakyReLU())
         super().__init__(*layers)
+        self.downsample = downsample
+
+    def forward(self, x):
+        mesh = spatial.active()
+        if mesh is None or not self.downsample:
+            return super().forward(x)
+        blur, conv, *rest = self
+        if not isinstance(conv, EqualConv2d):
+            raise NotImplementedError("a spectral-norm downsampling ConvLayer under 'space'")
+        y = conv.conv(_blur_for_stride2(x, blur, conv.weight.shape[2], mesh), (0, 0))
+        for m in rest:
+            y = m(y)
+        return y
 
 
 class ResBlock(nn.Module):
@@ -301,10 +410,14 @@ def minibatch_stddev(x, group_size: int = 4, num_features: int = 1, mesh=None):
 
     With a ``mesh`` (``parallel/mesh.py``) that has a group, ``x`` is a
     rank's rows of the global batch: the groups are taken over the global
-    batch, gathered with gradient (``Mesh.gather_rows``), and the rank's
-    rows of the channel are appended. Without a group nothing is cut,
-    since a slice in the graph can change the order of the backward's
-    sums."""
+    batch, gathered with gradient over ``'data'`` (``Mesh.gather_rows``),
+    and the rank's rows of the channel are appended. Without a group
+    nothing is cut, since a slice in the graph can change the order of the
+    backward's sums. On a mesh that splits rows over ``'space'``, ``x`` is
+    also a band: the per-pixel std stays local, its mean over (C/f, H, W)
+    is the band's sum, summed over ``'space'`` (``spatial.sum_space``) and
+    divided by the whole map's count, and re-enters the band through
+    ``spatial.enter_band``."""
     rows = None
     if mesh is not None and mesh.group is not None:
         local, x = x, mesh.gather_rows(x)
@@ -314,7 +427,11 @@ def minibatch_stddev(x, group_size: int = 4, num_features: int = 1, mesh=None):
     f = num_features
     y = x.reshape(g, b // g, f, c // f, h, w)
     std = torch.sqrt(torch.var(y, dim=0, unbiased=False) + 1e-8)
-    std = torch.mean(std, dim=(2, 3, 4))  # [b // g, f]
+    if mesh is not None and mesh.n_space > 1:
+        std = spatial.sum_space(torch.sum(std, dim=(2, 3, 4)), mesh)
+        std = spatial.enter_band(std * (1.0 / (c // f * h * mesh.n_space * w)), mesh)
+    else:
+        std = torch.mean(std, dim=(2, 3, 4))  # [b // g, f]
     std = std[None, :, :, None, None].expand(g, b // g, f, h, w).reshape(b, f, h, w)
     if rows is not None:
         x, std = local, std[rows]

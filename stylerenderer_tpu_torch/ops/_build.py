@@ -93,9 +93,12 @@ def build_seconds(name: str) -> float:
     return _SECONDS.get(name, 0.0)
 
 
-_MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+# rows, starts, slots, vals, wins; B, nf, top, n_levels, tile, n_attr,
+# perspective, ty0, nty; eps
+_MULTI_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
 _BIN_ARGS = [ctypes.c_void_p] * 3  # v, tri, attrs; then the outputs and scratch
-_BIN_SHAPE = [ctypes.c_int] * 8 + [ctypes.c_float]
+# B, nv, nf, top, n_levels, tile, n_attr, perspective, ty0, nty; eps
+_BIN_SHAPE = [ctypes.c_int] * 10 + [ctypes.c_float]
 # rows, starts, wins; B, nf, h, w, tile, perspective; eps
 _SINGLE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float]
 # rows, starts, wins; B, nf, h, w, tile, round, perspective; eps

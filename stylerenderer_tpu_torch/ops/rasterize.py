@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from stylerenderer_tpu_torch.parallel.spatial import band_rows, enter_band
+
 _NEG_INF = float("-inf")
 
 
@@ -185,8 +187,10 @@ def _auto_chunk(nf: int, bhw: int, budget: int) -> int:
 
 @torch.no_grad()
 def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
-                      eps: float = 1e-6, chunk: int | None = None):
-    """Dense winner search: ``[B, H, W]`` int32 triangle index, -1 background.
+                      eps: float = 1e-6, chunk: int | None = None, rows=None):
+    """Dense winner search: ``[B, H, W]`` int32 triangle index, -1 background;
+    with ``rows = (y0, y1)``, only those rows of the ``h x w`` image,
+    ``[B, y1 - y0, W]``, each pixel as in the whole image.
 
     Every (triangle, pixel) pair is evaluated, triangles in chunks; the test
     oracle and the plain version of both kernels. A pixel that a triangle
@@ -200,10 +204,11 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
     tri = torch.as_tensor(tri, device=v.device).long()
     B, nv, _ = v.shape
     nf = tri.shape[0]
-    hw = h * w
+    y0, y1 = (0, h) if rows is None else rows
+    hw = (y1 - y0) * w
     if chunk is None:
         chunk = _auto_chunk(nf, B * hw, (1 << 24) if v.is_cuda else (1 << 22))
-    ys = torch.arange(hw, device=v.device) // w
+    ys = torch.arange(y0 * w, y1 * w, device=v.device) // w
     xs = torch.arange(hw, device=v.device) % w
     X = xs.float()[None, None, :]
     Y = ys.float()[None, None, :]
@@ -231,7 +236,7 @@ def rasterize_winners(v, tri, h: int, w: int, perspective: bool = False,
         zbest = torch.where(upd, z_c, zbest)
         tbest = torch.where(upd, (i_c + start).to(torch.int32), tbest)
     tbest = torch.where(poisoned, -1, tbest)
-    return tbest.reshape(B, h, w)
+    return tbest.reshape(B, y1 - y0, w)
 
 
 def _triangle_table(v, tex_b, tri):
@@ -250,7 +255,8 @@ def _triangle_table(v, tex_b, tri):
 
 
 def _winner_gather(v, tex_b, tri, win, h: int, w: int, tbl=None):
-    """Per-pixel gather of the winning triangle's row of the triangle table.
+    """Per-pixel gather of the winning triangle's row of the triangle table
+    (``win`` ``[B, h, w]``: an image, or a band of ``h`` rows of one).
 
     Returns (vidx [B,H,W,3], pts [B,H,W,3,3], gtex [B,H,W,3,C] or None).
     """
@@ -270,12 +276,14 @@ def _winner_gather(v, tex_b, tri, win, h: int, w: int, tbl=None):
     return vidx, pts, gtex
 
 
-def _coeff_from_pts(pts, h: int, w: int, perspective: bool, eps: float):
+def _coeff_from_pts(pts, h: int, w: int, perspective: bool, eps: float, y0: int = 0):
     """Differentiable barycentric coefficients at every pixel center for the
-    per-pixel triangle vertices ``pts [B, H, W, 3, 3]``."""
-    idx = torch.arange(h * w, device=pts.device)
-    X = (idx % w).float().reshape(1, h, w)
-    Y = (idx // w).float().reshape(1, h, w)
+    per-pixel triangle vertices ``pts [B, hb, W, 3, 3]`` of rows
+    ``[y0, y0 + hb)`` of an ``h x w`` image."""
+    hb = pts.shape[1]
+    idx = torch.arange(hb * w, device=pts.device)
+    X = (idx % w).float().reshape(1, hb, w)
+    Y = (idx // w + y0).float().reshape(1, hb, w)
     px, py, z, persp_ok = _project_verts(pts, h, w, perspective, eps)
     coeff, _, _ = _eval_candidate(px, py, z, persp_ok, X, Y, h, w,
                                   perspective, eps)
@@ -344,12 +352,14 @@ def rasterize_index_coeff(v, tri, h: int = 256, w: int = 0,
     return vidx, coeff
 
 
-def _interp_from_win(v, tex_b, tri, win, h, w, perspective, eps, tbl=None):
+def _interp_from_win(v, tex_b, tri, win, h, w, perspective, eps, tbl=None, y0: int = 0):
     """Differentiable interpolation given a winner map: one per-pixel row
-    gather, the coefficient recompute (the gradient path), weighted sum."""
+    gather, the coefficient recompute (the gradient path), weighted sum.
+    ``win`` is the ``h x w`` image's map, or the map of its rows
+    ``[y0, y0 + win.shape[1])``."""
     valid = (win >= 0)[..., None]
-    _, pts, gathered = _winner_gather(v, tex_b, tri, win, h, w, tbl=tbl)
-    coeff = _coeff_from_pts(pts, h, w, perspective, eps)
+    _, pts, gathered = _winner_gather(v, tex_b, tri, win, win.shape[1], w, tbl=tbl)
+    coeff = _coeff_from_pts(pts, h, w, perspective, eps, y0)
     coeff = torch.where(valid, coeff, torch.zeros_like(coeff))
     cf = coeff[..., None].to(gathered.dtype)
     # explicit (c0*a0 + c1*a1) + c2*a2: the kernel interpolates in this
@@ -416,22 +426,27 @@ def _multi_levels(sizes, method: str, n_attr: int | None):
 
 class _FusedLevels(torch.autograd.Function):
     """Forward: the multi-level kernel interpolates the winners' attributes
-    in-kernel and returns the winner maps. Backward: plain autograd through
-    ``_interp_from_win`` per level with ONE shared triangle table, seeded
-    with the saved winner maps — the interpolation-only gradients of
-    ``rasterize_pyramid`` (first order only)."""
+    in-kernel and returns the winner maps (of the band of tile rows
+    ``band``, with its ``tile``, or of the whole image). Backward: plain
+    autograd through ``_interp_from_win`` per level with ONE shared
+    triangle table, seeded with the saved winner maps — the
+    interpolation-only gradients of ``rasterize_pyramid`` (first order
+    only)."""
 
     @staticmethod
-    def forward(ctx, v, tex_b, tri, top, covered, perspective, eps):
+    def forward(ctx, v, tex_b, tri, top, covered, perspective, eps, tile, band):
         from stylerenderer_tpu_torch.ops.rasterize_multi import (
+            band_level_rows,
             rasterize_winners_multi,
         )
         outs = rasterize_winners_multi(v.detach(), tri, top, len(covered),
                                        perspective, eps,
-                                       attrs=tex_b.detach().float())
+                                       attrs=tex_b.detach().float(), tile=tile, band=band)
         wins = [w for _, w in outs]
         ctx.save_for_backward(v, tex_b, tri, *wins)
         ctx.covered, ctx.perspective, ctx.eps = covered, perspective, eps
+        ctx.y0 = [0 if band is None else band_level_rows(top, tile, band, k)[0]
+                  for k in range(len(covered))]
         return tuple(va.to(tex_b.dtype) for va, _ in outs)
 
     @staticmethod
@@ -442,31 +457,48 @@ class _FusedLevels(torch.autograd.Function):
             tt = tex_b.detach().requires_grad_(True)
             tbl = _triangle_table(vv, tt, tri)
             outs = [_interp_from_win(vv, tt, tri, win, s, s, ctx.perspective,
-                                     ctx.eps, tbl=tbl)
-                    for win, s in zip(wins, ctx.covered)]
+                                     ctx.eps, tbl=tbl, y0=y0)
+                    for win, s, y0 in zip(wins, ctx.covered, ctx.y0)]
             gv, gt = torch.autograd.grad(outs, (vv, tt), grad_outputs=cts,
                                          allow_unused=True)
-        return gv, gt, None, None, None, None, None
+        return gv, gt, None, None, None, None, None, None, None
 
 
 def rasterize_pyramid_fused(v, tex, tri, sizes, perspective: bool = False,
-                            eps: float = 1e-6, method: str = "auto"):
+                            eps: float = 1e-6, method: str = "auto", mesh=None):
     """``rasterize_pyramid`` with the attribute interpolation inside the
     multi-level kernel: one binning and one kernel pass produce the finished
     value maps of the power-of-two tail of ``sizes``; other sizes take the
     dense search. Values and winners are bit-equal to the dense oracle;
-    gradients (first order) are ``rasterize_pyramid``'s."""
+    gradients (first order) are ``rasterize_pyramid``'s.
+
+    With a ``mesh`` (``parallel/mesh.py``) that splits rows over
+    ``'space'``, ``v`` and ``tex`` are replicated and each map is this
+    rank's band of rows (``parallel/spatial.py::band_rows``): the kernel
+    renders only the band's tiles of every level it covers
+    (``rasterize_multi.py::space_band``); the other sizes are searched
+    whole and cut. The gradients in ``v`` and ``tex`` are then the band's
+    share, and are summed over ``'space'`` on the way out, so each rank
+    holds the whole gradient of a replicated input."""
     if v.ndim == 2:
         v, tex = v[None], tex[None]
     scalar_tex = tex.ndim == v.ndim - 1
     tex_b = tex[..., None] if scalar_tex else tex
     sizes = list(sizes)
     tri = torch.as_tensor(tri, device=v.device)
+    n_space = 1 if mesh is None else mesh.n_space
+    if n_space > 1:
+        v, tex_b = enter_band(v, mesh), enter_band(tex_b, mesh)
     maps = {}
     covered = _multi_levels(sizes, method, tex_b.shape[-1])
     if covered:
+        tile = band = None
+        if n_space > 1:
+            from stylerenderer_tpu_torch.ops.rasterize_multi import space_band
+
+            tile, band = space_band(covered[0], len(covered), n_space, mesh.space_index)
         fused = _FusedLevels.apply(v, tex_b, tri, covered[0], covered,
-                                   perspective, eps)
+                                   perspective, eps, tile, band)
         maps = dict(zip(covered, fused))
     meth = "auto" if method == "pallas_multi" else method
     results = []
@@ -474,7 +506,11 @@ def rasterize_pyramid_fused(v, tex, tri, sizes, perspective: bool = False,
         m = maps.get(s)
         if m is None:
             win = _dispatch_winners(v, tri, s, s, perspective, eps, meth)
-            m = _interp_from_win(v, tex_b, tri, win, s, s, perspective, eps)
+            y0 = 0
+            if n_space > 1:
+                rows = band_rows(mesh, s)
+                win, y0 = win[:, rows], rows.start
+            m = _interp_from_win(v, tex_b, tri, win, s, s, perspective, eps, y0=y0)
         m = m.to(tex_b.dtype)
         results.append(m[..., 0] if scalar_tex else m)
     return results

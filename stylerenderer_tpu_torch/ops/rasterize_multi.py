@@ -20,6 +20,19 @@ top/2, ..., top >> (n_levels-1)``, each bit-equal to the dense oracle
 - ``bin_multi_host``, ``rasterize_bins_multi_host``,
   ``rasterize_winners_multi_host``: the card's binning and kernel built for
   the host (``csrc/rasterize_multi_host.cpp``), for the CPU tests.
+
+Each takes a ``band``: top-level tile rows ``(ty0, nty)``, the rows
+``[ty0, ty0 + nty)`` of the tile grid (``None``: the whole image). Level
+``k`` then gives its rows ``[ty0 * tile >> k, (ty0 + nty) * tile >> k)``,
+``[B, (nty * tile) >> k, s]``, bit-equal to those rows of the whole
+image's result; the binning keeps only the triangles whose tile rows meet
+the band and the kernel's grid covers only the band's tiles. Every level's
+band must be whole rows, so a band of ``r`` top-level rows needs a tile
+that divides ``r``: ``space_band`` picks ``default_tile(top)`` or, for
+narrower bands, the band's own height (a 256 px pyramid split over 2 or 4
+ranks has 128- or 64-row bands and keeps tile 16; the 16 px GAR over 4
+ranks has 4-row bands and takes tile 4). That is the spatial sharding of
+``parallel/spatial.py``: each rank renders its band of every level.
 """
 
 from __future__ import annotations
@@ -81,7 +94,7 @@ def _sparse_sp(top: int, wl: int, tile: int) -> tuple[int, int]:
 
 @torch.no_grad()
 def build_bins_multi(v, tri, top: int, n_levels: int, perspective: bool,
-                     eps: float, tile: int, attrs=None):
+                     eps: float, tile: int, attrs=None, band=None):
     """Sort the triangles by ``tier * ntiles + home`` for the multi-level
     kernel -> (dat ``[B, nf, 9+3C]`` f32, ids ``[B, nf]`` i32, starts
     ``[B, 4*ntiles+1]`` i32).
@@ -94,7 +107,8 @@ def build_bins_multi(v, tri, top: int, n_levels: int, perspective: bool,
       coarse pixel center is kept;
     - a triangle degenerate at ANY level (``|det| <= eps * 4**kmax``, det
       shrinks by 4 per level) goes to the degenerate tier or XL;
-    - home is the top-left tile of the float bbox (floor, not ceil).
+    - home is the top-left tile of the float bbox (floor, not ceil);
+    - with a ``band``, a triangle whose tile rows miss it is invalid.
 
     The sort is stable (``lax.sort`` is not); ties break by id in the
     kernel, so the result cannot change.
@@ -106,6 +120,7 @@ def build_bins_multi(v, tri, top: int, n_levels: int, perspective: bool,
     ntx = top // tile
     ntiles = ntx * ntx
     kmax = n_levels - 1
+    band_lo, nty = _check_band(top, n_levels, tile, band)
     det_scale = float(4 ** kmax)
 
     px, py, z, persp_ok, *_ = _setup(v, tri, top, top, perspective, eps)
@@ -150,6 +165,7 @@ def build_bins_multi(v, tri, top: int, n_levels: int, perspective: bool,
     tier = torch.where(ts <= 1, 0, torch.where(ts <= 2, 1, xl))
     tier = torch.where(deg, torch.where(ts <= 2, 2, xl), tier)
     home = ty0 * ntx + tx0
+    valid = valid & (ty1 >= band_lo) & (ty0 < band_lo + nty)
     key = torch.where(valid, tier * ntiles + home, MULTI_N_TIERS * ntiles)
 
     key_sorted, perm = torch.sort(key, dim=-1, stable=True)
@@ -181,24 +197,73 @@ def _check_levels(top: int, n_levels: int, tile: int | None) -> int:
     return tile
 
 
-def split_levels(vals, wins, B: int, top: int, n_levels: int, n_attr: int):
-    """Level-major flat outputs -> per level (values, winners) or winners."""
+def _check_band(top: int, n_levels: int, tile: int, band) -> tuple[int, int]:
+    """Validate a band of top-level tile rows -> ``(ty0, nty)`` (``None``:
+    the whole image, ``(0, top // tile)``). Raises unless it lies in the
+    tile grid and is whole rows at every level."""
+    ntx = top // tile
+    if band is None:
+        return 0, ntx
+    ty0, nty = (int(b) for b in band)
+    if ty0 < 0 or nty < 1 or ty0 + nty > ntx:
+        raise ValueError(f"band of tile rows [{ty0}, {ty0 + nty}) outside the {ntx} rows of "
+                         f"{tile} px tiles at top {top}")
+    for k in range(n_levels):
+        if (ty0 * tile) % (1 << k) or (nty * tile) % (1 << k):
+            raise ValueError(f"band of tile rows [{ty0}, {ty0 + nty}) (tile {tile}) is not "
+                             f"whole rows at the {top >> k} px level")
+    return ty0, nty
+
+
+def band_level_rows(top: int, tile: int, band, k: int) -> tuple[int, int]:
+    """Level ``k``'s rows ``[y0, y1)`` of a band of tile rows (``None``:
+    all of them)."""
+    ty0, nty = (0, top // tile) if band is None else band
+    return (ty0 * tile) >> k, ((ty0 + nty) * tile) >> k
+
+
+def space_band(top: int, n_levels: int, n_space: int, index: int, tile: int | None = None):
+    """The tile and the band of tile rows of part ``index`` of ``n_space``
+    equal row bands of a ``top``-px pyramid of ``n_levels`` levels ->
+    ``(tile, (ty0, nty))``. ``tile`` (default ``default_tile(top)``) is
+    halved until it divides the band. Raises unless ``n_space`` divides
+    every level's height (so the smallest level has at least ``n_space``
+    rows)."""
+    smallest = top >> (n_levels - 1)
+    if n_space < 1 or not 0 <= index < n_space or top % n_space or smallest % n_space:
+        raise ValueError(f"{n_space} row bands of a pyramid {top}..{smallest} px: every level's "
+                         f"height must be a multiple of {n_space}")
+    rows = top // n_space
+    tile = default_tile(top) if tile is None else tile
+    while rows % tile:
+        tile //= 2
+    tile = _check_levels(top, n_levels, tile)
+    band = (index * rows // tile, rows // tile)
+    _check_band(top, n_levels, tile, band)
+    return tile, band
+
+
+def split_levels(vals, wins, B: int, top: int, n_levels: int, n_attr: int, rows: int = 0):
+    """Level-major flat outputs of a band ``rows`` top-level rows high (0:
+    the whole image) -> per level (values, winners) or winners."""
+    rows = rows or top
     outs = []
     off = 0
     for k in range(n_levels):
-        s = top >> k
-        n = B * s * s
-        w = wins[off:off + n].view(B, s, s)
+        s, h = top >> k, rows >> k
+        n = B * h * s
+        w = wins[off:off + n].view(B, h, s)
         if n_attr:
-            outs.append((vals[off * n_attr:(off + n) * n_attr].view(B, s, s, n_attr), w))
+            outs.append((vals[off * n_attr:(off + n) * n_attr].view(B, h, s, n_attr), w))
         else:
             outs.append(w)
         off += n
     return outs
 
 
-def _alloc_outputs(B, top, n_levels, n_attr, device):
-    n = sum(B * (top >> k) ** 2 for k in range(n_levels))
+def _alloc_outputs(B, top, n_levels, n_attr, device, rows: int = 0):
+    rows = rows or top
+    n = sum(B * (top >> k) * (rows >> k) for k in range(n_levels))
     vals = torch.empty(max(n * n_attr, 1), dtype=torch.float32, device=device)
     wins = torch.empty(n, dtype=torch.int32, device=device)
     return vals, wins
@@ -206,23 +271,27 @@ def _alloc_outputs(B, top, n_levels, n_attr, device):
 
 def rasterize_winners_multi_ref(v, tri, top: int, n_levels: int,
                                 perspective: bool = False, eps: float = 1e-6,
-                                attrs=None, tile: int | None = None):
-    """Plain version of the kernel: the dense search at every level, then
-    ``_interp_from_win`` (the oracle of the bit-exact contract)."""
-    _check_levels(top, n_levels, tile)
+                                attrs=None, tile: int | None = None, band=None):
+    """Plain version of the kernel: the dense search at every level (on the
+    band's rows of it), then ``_interp_from_win`` (the oracle of the
+    bit-exact contract)."""
+    tile = _check_levels(top, n_levels, tile)
+    _check_band(top, n_levels, tile, band)
     v = v.detach().float()
     tri = torch.as_tensor(tri, device=v.device)
     tbl = None if attrs is None else _triangle_table(v, attrs.detach().float(), tri)
     outs = []
     for k in range(n_levels):
         s = top >> k
-        win = rasterize_winners(v, tri, s, s, perspective, eps)
+        y0, y1 = band_level_rows(top, tile, band, k)
+        win = rasterize_winners(v, tri, s, s, perspective, eps,
+                                rows=None if band is None else (y0, y1))
         if attrs is None:
             outs.append(win)
         else:
             with torch.no_grad():
                 vals = _interp_from_win(v, attrs.detach().float(), tri, win, s, s,
-                                        perspective, eps, tbl=tbl)
+                                        perspective, eps, tbl=tbl, y0=y0)
             outs.append((vals, win))
     return outs
 
@@ -273,7 +342,7 @@ def _ptr(t):
 
 
 def launch_bin_multi(v, tri, top: int, n_levels: int, perspective: bool, eps: float,
-                     tile: int, attrs=None):
+                     tile: int, attrs=None, band=None):
     """Bin on the card with the hand-written passes of
     ``csrc/rasterize_multi.cu`` (a zeroed count buffer, then classify, scan
     and scatter: four launches, no host synchronisation, no sort) ->
@@ -285,12 +354,14 @@ def launch_bin_multi(v, tri, top: int, n_levels: int, perspective: bool, eps: fl
     the valid prefix ``[0, starts[:, -1])`` only; ``slots[b, id]`` is the
     row of valid triangle ``id`` (the kernel reads its winners' values
     there). The order within a segment varies from run to run, which the
-    kernel's result does not depend on."""
+    kernel's result does not depend on. With a ``band``, only the triangles
+    whose tile rows meet it are valid."""
     from stylerenderer_tpu_torch.ops._build import library
 
     if v.device.type != "cuda":
         raise ValueError(f"the card's binning takes CUDA tensors, got {v.device}")
     _check_inputs(v, attrs)
+    ty0, nty = _check_band(top, n_levels, tile, band)
     v, tri, ab, K = _bin_args(v, tri, top, n_levels, tile, attrs)
     B, nv, _ = v.shape
     nf = tri.shape[0]
@@ -303,7 +374,7 @@ def launch_bin_multi(v, tri, top: int, n_levels: int, perspective: bool, eps: fl
     rc = lib.sr_bin_multi(v.data_ptr(), tri.data_ptr(), _ptr(ab), counts.data_ptr(),
                           keys.data_ptr(), rank.data_ptr(), starts.data_ptr(), rows.data_ptr(),
                           slots.data_ptr(), B, nv, nf, top, n_levels, tile, n_attr,
-                          int(perspective), eps, stream)
+                          int(perspective), ty0, nty, eps, stream)
     if rc != 0:
         raise RuntimeError("bin_multi launch failed: " + lib.sr_error_string(rc).decode())
     return rows, starts, slots, keys
@@ -330,68 +401,77 @@ def _check_bins(rows, starts, slots, top: int, tile: int, n_attr: int, device_ty
 
 
 def launch_rasterize_multi(rows, starts, slots, top: int, n_levels: int, tile: int,
-                           n_attr: int, perspective: bool, eps: float):
-    """Launch the Hopper kernel on the card's binning (``launch_bin_multi``)
-    on the current stream -> flat level-major (values, winners). Counts the
-    launch in ``rasterize_winners_multi.launches``; raises when the launch
-    is refused."""
+                           n_attr: int, perspective: bool, eps: float, band=None):
+    """Launch the Hopper kernel on the card's binning (``launch_bin_multi``,
+    of the same ``band``) on the current stream, over the band's tiles ->
+    flat level-major (values, winners) of the band. Counts the launch in
+    ``rasterize_winners_multi.launches``, and a launch on a band narrower
+    than the image also in ``rasterize_winners_multi.band_launches``;
+    raises when the launch is refused."""
     from stylerenderer_tpu_torch.ops._build import library
 
     _check_bins(rows, starts, slots, top, tile, n_attr, "cuda")
+    ty0, nty = _check_band(top, n_levels, tile, band)
     lib = library("multi")
     B = rows.shape[0]
-    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, rows.device)
+    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, rows.device, nty * tile)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.sr_rasterize_multi(
         rows.data_ptr(), starts.data_ptr(), slots.data_ptr(), vals.data_ptr(), wins.data_ptr(), B,
-        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), eps, stream)
+        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), ty0, nty, eps, stream)
     if rc != 0:
         raise RuntimeError("rasterize_multi launch failed: "
                            + lib.sr_error_string(rc).decode())
     rasterize_winners_multi.launches += 1
+    if nty * tile < top:
+        rasterize_winners_multi.band_launches += 1
     return vals, wins
 
 
 def rasterize_winners_multi(v, tri, top: int, n_levels: int,
                             perspective: bool = False, eps: float = 1e-6,
-                            attrs=None, tile: int | None = None):
+                            attrs=None, tile: int | None = None, band=None):
     """Winner maps, or fused value maps, of the whole pyramid in one pass.
 
     ``attrs=None``: a list of ``n_levels`` winner maps ``[B, s, s]`` int32
     (-1 background), ``s = top >> k``. ``attrs`` ``[B, nv, C]`` (C <= 7): a
     list of ``(values [B, s, s, C] f32, winners [B, s, s] i32)``, values 0
-    on background.
+    on background. With a ``band`` of tile rows, each level's rows of it
+    (see the module's docstring).
 
     A CUDA ``v`` is binned on the card (``launch_bin_multi``) and launches
     the kernel (counted in ``rasterize_winners_multi.launches``); a CPU
     ``v`` takes the plain version. There is no fallback between the two.
     """
     tile = _check_levels(top, n_levels, tile)
+    _, nty = _check_band(top, n_levels, tile, band)
     _check_inputs(v, attrs)
     if v.device.type == "cpu":
         return rasterize_winners_multi_ref(v, tri, top, n_levels, perspective,
-                                           eps, attrs, tile)
+                                           eps, attrs, tile, band)
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     n_attr = 0 if attrs is None else attrs.shape[-1]
     rows, starts, slots, _ = launch_bin_multi(v, tri, top, n_levels, perspective, eps, tile,
-                                              attrs)
+                                              attrs, band)
     vals, wins = launch_rasterize_multi(rows, starts, slots, top, n_levels, tile, n_attr,
-                                        perspective, eps)
-    return split_levels(vals, wins, v.shape[0], top, n_levels, n_attr)
+                                        perspective, eps, band)
+    return split_levels(vals, wins, v.shape[0], top, n_levels, n_attr, nty * tile)
 
 
 rasterize_winners_multi.launches = 0
+rasterize_winners_multi.band_launches = 0
 
 
 def bin_multi_host(v, tri, top: int, n_levels: int, perspective: bool, eps: float,
-                   tile: int, attrs=None):
+                   tile: int, attrs=None, band=None):
     """The card's binning compiled for the host (g++), on CPU tensors ->
     ``launch_bin_multi``'s (rows, starts, slots, keys); each segment in
     ascending id order."""
     from stylerenderer_tpu_torch.ops._build import library
 
     _check_inputs(v, attrs)
+    ty0, nty = _check_band(top, n_levels, tile, band)
     v, tri, ab, K = _bin_args(v.cpu(), tri, top, n_levels, tile,
                               None if attrs is None else attrs.cpu())
     B, nv, _ = v.shape
@@ -401,7 +481,7 @@ def bin_multi_host(v, tri, top: int, n_levels: int, perspective: bool, eps: floa
     rc = library("multi_host").sr_bin_multi_host(
         v.data_ptr(), tri.data_ptr(), _ptr(ab), keys.data_ptr(), starts.data_ptr(),
         rows.data_ptr(), slots.data_ptr(), B, nv, nf, top, n_levels, tile, n_attr,
-        int(perspective), ctypes.c_float(eps))
+        int(perspective), ty0, nty, ctypes.c_float(eps))
     if rc != 0:
         raise RuntimeError("host bin_multi rejected its arguments")
     return rows, starts, slots, keys
@@ -410,7 +490,7 @@ def bin_multi_host(v, tri, top: int, n_levels: int, perspective: bool, eps: floa
 def rasterize_bins_multi_host(rows, starts, slots, top: int, n_levels: int, tile: int,
                               n_attr: int, perspective: bool = False, eps: float = 1e-6,
                               round_size: int = 0, queue: int = 0,
-                              stats: dict | None = None):
+                              stats: dict | None = None, band=None):
     """The kernel's per-tile schedule and candidate math compiled for the
     host (g++) on binned rows (``bin_multi_host``) -> per level (values,
     winners) or winners, as ``rasterize_winners_multi``. ``round_size``
@@ -421,28 +501,29 @@ def rasterize_bins_multi_host(rows, starts, slots, top: int, n_levels: int, tile
     from stylerenderer_tpu_torch.ops._build import library
 
     _check_bins(rows, starts, slots, top, tile, n_attr, "cpu")
+    ty0, nty = _check_band(top, n_levels, tile, band)
     B = rows.shape[0]
-    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, "cpu")
+    vals, wins = _alloc_outputs(B, top, n_levels, n_attr, "cpu", nty * tile)
     rc = library("multi_host").sr_rasterize_multi_host(
         rows.data_ptr(), starts.data_ptr(), slots.data_ptr(), vals.data_ptr(), wins.data_ptr(), B,
-        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), ctypes.c_float(eps),
-        round_size, queue)
+        rows.shape[1], top, n_levels, tile, n_attr, int(perspective), ty0, nty,
+        ctypes.c_float(eps), round_size, queue)
     if rc < 0:
         raise RuntimeError("host rasterize_multi rejected its arguments")
     if stats is not None:
         stats["flushes"] = rc
-    return split_levels(vals, wins, B, top, n_levels, n_attr)
+    return split_levels(vals, wins, B, top, n_levels, n_attr, nty * tile)
 
 
 def rasterize_winners_multi_host(v, tri, top: int, n_levels: int,
                                  perspective: bool = False, eps: float = 1e-6,
-                                 attrs=None, tile: int | None = None):
+                                 attrs=None, tile: int | None = None, band=None):
     """The card's binning and kernel compiled for the host (g++), on CPU
     tensors: the same output as ``rasterize_winners_multi`` on the card."""
     tile = _check_levels(top, n_levels, tile)
     _check_inputs(v, attrs)
     rows, starts, slots, _ = bin_multi_host(v, tri, top, n_levels, perspective, eps, tile,
-                                            attrs)
+                                            attrs, band)
     n_attr = 0 if attrs is None else attrs.shape[-1]
     return rasterize_bins_multi_host(rows, starts, slots, top, n_levels, tile, n_attr,
-                                     perspective, eps)
+                                     perspective, eps, band=band)

@@ -148,6 +148,21 @@ def upfirdn2d_ref(x, kernel, up=1, down=1, pad=(0, 0)) -> np.ndarray:
     return out
 
 
+def upfirdn2d_band(x, kernel, mesh, up=1, down=1, pad=(0, 0)) -> torch.Tensor:
+    """``upfirdn2d`` of a map whose rows are split over ``mesh``'s
+    ``'space'`` axis: ``x`` is this rank's band, the result its band of the
+    whole map's output rows (``parallel/spatial.py::band_ops``: a halo of
+    the rows the band's outputs read, the y pads replaced by the plan's).
+    Raises unless the whole map's output rows split into equal bands."""
+    from stylerenderer_tpu_torch.parallel.spatial import band_ops
+
+    (_, up_y), (_, down_y), (px0, px1, py0, py1) = _as_pair(up), _as_pair(down), _pads(pad)
+    kh = kernel.shape[0]
+    h_out = (x.shape[2] * mesh.n_space * up_y + py0 + py1 - kh) // down_y + 1
+    x, ((q0, q1),) = band_ops(x, [(up_y, down_y, kh, py0)], h_out, mesh)
+    return upfirdn2d(x, kernel, up, down, (px0, px1, q0, q1))
+
+
 def upsample2d(x, kernel, factor: int = 2):
     """FIR upsample by ``factor`` (StyleGAN2 ``Upsample`` pad arithmetic)."""
     kernel = kernel * (factor ** 2)

@@ -27,6 +27,17 @@ every rank would train alone.
 
 Without a launcher, ``make_mesh`` gives world 1 with no group: every
 collective is then the identity and the step is the one-process step.
+
+``make_mesh_2d(n_data, n_space)`` lays the world out as JAX's
+``make_mesh_2d`` does, ``reshape(n_data, n_space)`` over the axes
+``('data', 'space')``: global rank ``r`` has data index ``r // n_space``
+and space index ``r % n_space``, with a process group over each row
+(``space_group``, the ranks of one data index) and each column
+(``data_group``). The batch is split over ``'data'`` as above (``rows``,
+``gather_rows`` and ``batch_sharding`` use the data group), and the
+feature maps' rows over ``'space'`` (``image_sharding``;
+``parallel/spatial.py`` holds the space collectives, the halo exchanges
+and the adjoint convention). A 1-D mesh is ``n_space == 1``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from stylerenderer_tpu_torch.device import resolve_device
+from stylerenderer_tpu_torch.parallel.spatial import band_rows
 
 _LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 
@@ -54,20 +66,37 @@ class Mesh:
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
     group: object | None = None
     backend: str | None = None
+    n_space: int = 1
+    # the ranks of this rank's column (one space index) and row (one data
+    # index); on a 1-D mesh the data group is ``group`` and there is none
+    data_group: object | None = None
+    space_group: object | None = None
 
     @property
     def is_main(self) -> bool:
         """Rank 0: the rank that writes logs, sample grids and checkpoints."""
         return self.rank == 0
 
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_space
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.n_space
+
     def rows(self, batch: int) -> slice:
         """The rows of a global batch of ``batch`` that this rank holds."""
         return batch_sharding(self, batch)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along dim 0 in rank order,
+        """Every data rank's ``x`` concatenated along dim 0 in rank order,
         differentiable (the identity without a group)."""
-        if self.group is None:
+        if self.data_group is None:
             return x
         return _GatherRows.apply(x, self)
 
@@ -78,8 +107,10 @@ class Mesh:
         return t
 
     def average_gradients(self, grads) -> list:
-        """The mean over the ranks of each gradient: per dtype one flat
-        buffer and one ``all_reduce``, then views of it."""
+        """The mean over the data ranks of each gradient: per dtype one flat
+        buffer and one ``all_reduce`` over the world, divided by ``n_data``,
+        then views of it. On a 2-D mesh that is a sum over ``'space'`` (a
+        rank's gradient is its band's share) and a mean over ``'data'``."""
         grads = list(grads)
         if self.group is None:
             return grads
@@ -89,7 +120,7 @@ class Mesh:
         for idx in by_dtype.values():
             flat = torch.cat([grads[i].reshape(-1) for i in idx])
             dist.all_reduce(flat, group=self.group)
-            flat.div_(self.world)
+            flat.div_(self.n_data)
             for i, piece in zip(idx, flat.split([grads[i].numel() for i in idx])):
                 grads[i] = piece.view_as(grads[i])
         return grads
@@ -127,16 +158,16 @@ class Mesh:
 
 def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.world)]
-    dist.all_gather(parts, x, group=mesh.group)
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, x, group=mesh.data_group)
     return torch.cat(parts)
 
 
 def _sum_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     total = x.contiguous().clone()
-    dist.all_reduce(total, group=mesh.group)
-    n = x.shape[0] // mesh.world
-    return total[mesh.rank * n:(mesh.rank + 1) * n].clone()
+    dist.all_reduce(total, group=mesh.data_group)
+    n = x.shape[0] // mesh.n_data
+    return total[mesh.data_index * n:(mesh.data_index + 1) * n].clone()
 
 
 class _GatherRows(torch.autograd.Function):
@@ -206,16 +237,80 @@ def make_mesh(device="cuda", *, rank: int | None = None, world_size: int | None 
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     return Mesh(rank=rank, world=world_size, local_rank=local_rank, device=dev,
-                group=dist.group.WORLD, backend=backend)
+                group=dist.group.WORLD, backend=backend, data_group=dist.group.WORLD)
+
+
+def make_mesh_2d(n_data: int, n_space: int, device="cuda", *, rank: int | None = None,
+                 world_size: int | None = None, local_rank: int | None = None,
+                 backend: str | None = None, init_method: str = "env://") -> Mesh:
+    """The ``n_data x n_space`` mesh of this process over the axes
+    ``('data', 'space')`` (JAX's ``make_mesh_2d``): ``make_mesh``'s group,
+    arguments and launcher variables, laid out by ``split_mesh``. Raises
+    unless the world has ``n_data * n_space`` ranks (before any group is
+    made, when ``world_size`` is given). With ``n_space == 1`` it is
+    ``make_mesh``'s mesh."""
+    if n_data < 1 or n_space < 1:
+        raise ValueError(f"a {n_data} x {n_space} mesh")
+    if world_size is not None and world_size != n_data * n_space:
+        raise ValueError(f"a {n_data} x {n_space} mesh needs {n_data * n_space} ranks, "
+                         f"not {world_size}")
+    mesh = make_mesh(device, rank=rank, world_size=world_size, local_rank=local_rank,
+                     backend=backend, init_method=init_method)
+    try:
+        return split_mesh(mesh, n_data, n_space)
+    except ValueError:
+        mesh.destroy()
+        raise
+
+
+def split_mesh(mesh: Mesh, n_data: int, n_space: int) -> Mesh:
+    """``mesh``'s world laid out as ``n_data x n_space`` -> a new ``Mesh``
+    over the same world group with a data group for each space index and
+    a space group for each data index (every rank makes every group, in
+    one order, as ``dist.new_group`` asks). ``n_space == 1`` gives the 1-D
+    mesh: ``mesh`` itself. Raises unless ``n_data * n_space`` is the
+    world."""
+    if n_data * n_space != mesh.world:
+        raise ValueError(f"a {n_data} x {n_space} mesh needs {n_data * n_space} ranks, "
+                         f"not {mesh.world}")
+    if n_space == 1:
+        return mesh
+    data_group = space_group = None
+    for d in range(n_data):
+        g = dist.new_group([d * n_space + s for s in range(n_space)])
+        if d == mesh.rank // n_space:
+            space_group = g
+    for s in range(n_space):
+        g = dist.new_group([d * n_space + s for d in range(n_data)])
+        if s == mesh.rank % n_space:
+            data_group = g
+    return dataclasses.replace(mesh, n_space=n_space, data_group=data_group,
+                               space_group=space_group)
 
 
 def batch_sharding(mesh: Mesh, batch: int) -> slice:
-    """Rank ``r``'s rows ``[r B/W, (r+1) B/W)`` of a global batch of
-    ``batch`` (JAX's ``P('data')``); raises unless W divides it."""
-    if batch % mesh.world:
-        raise ValueError(f"batch {batch} not divisible by {mesh.world} ranks")
-    n = batch // mesh.world
-    return slice(mesh.rank * n, (mesh.rank + 1) * n)
+    """Data rank ``d``'s rows ``[d B/D, (d+1) B/D)`` of a global batch of
+    ``batch`` over ``D = n_data`` data ranks (JAX's ``P('data')``); raises
+    unless D divides it."""
+    if batch % mesh.n_data:
+        raise ValueError(f"batch {batch} not divisible by {mesh.n_data} ranks")
+    n = batch // mesh.n_data
+    return slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+
+
+def image_sharding(mesh: Mesh, batch: int, height: int) -> tuple[slice, slice]:
+    """This rank's ``(rows, band)`` of a global ``[batch, C, height, W]``
+    image batch: its rows of the batch over ``'data'`` and its rows of the
+    image over ``'space'`` (JAX's ``P('data', 'space')`` on NHWC's dims 0
+    and 1, here NCHW's 0 and 2)."""
+    return batch_sharding(mesh, batch), band_rows(mesh, height)
+
+
+def shard_image(mesh: Mesh, images: torch.Tensor) -> torch.Tensor:
+    """This rank's block ``[B/n_data, C, H/n_space, W]`` of a global
+    ``[B, C, H, W]`` batch."""
+    rows, band = image_sharding(mesh, images.shape[0], images.shape[2])
+    return images[rows, :, band]
 
 
 def replicated(mesh: Mesh, tensors) -> list:

@@ -9,12 +9,15 @@ otherwise:
         tests/test_torch_gpu.py
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from torch_meshes import (
-    KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins, single_case,
+    BAND_CASES, KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins,
+    single_case,
 )
 
 import stylerenderer_tpu_torch.ops.rasterize_multi as rasterize_multi_mod
@@ -29,6 +32,7 @@ from stylerenderer_tpu_torch.ops.rasterize_multi import (
     launch_bin_multi,
     rasterize_winners_multi,
     rasterize_winners_multi_ref,
+    space_band,
 )
 from stylerenderer_tpu_torch.ops.rasterize_single import (
     build_bins,
@@ -1033,3 +1037,97 @@ def test_cuda_world1_nccl_step_equals_no_group(cuda, monkeypatch):
             assert torch.equal(torch.as_tensor(m[k]), torch.as_tensor(m0[k])), (what, k)
         for a, b in zip(ts, t0):
             assert torch.equal(a, b), what
+
+
+# ---- spatial sharding ---------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n_levels,n_space,tile", BAND_CASES)
+def test_cuda_k1_band_matches_full_cut(cuda, name, n_levels, n_space, tile):
+    """K1 by band on the card (values and winners-only): every band equal,
+    bit for bit, to the whole image's launch cut to the band and to the
+    plain version of the band; the card binning's keys those of the plain
+    binning of the band; each banded launch counted in ``launches`` and
+    ``band_launches``."""
+    v, tri, attrs, top, _, _, persp = kernel_case(name)
+    v, tri, attrs = (torch.from_numpy(a).to(cuda) for a in (v, tri, attrs))
+    full = rasterize_winners_multi(v, tri, top, n_levels, persp, attrs=attrs,
+                                   tile=space_band(top, n_levels, 1, 0, tile)[0])
+    for index in range(n_space):
+        t, band = space_band(top, n_levels, n_space, index, tile)
+        before = (rasterize_winners_multi.launches, rasterize_winners_multi.band_launches)
+        out = rasterize_winners_multi(v, tri, top, n_levels, persp, attrs=attrs, tile=t, band=band)
+        wins = rasterize_winners_multi(v, tri, top, n_levels, persp, tile=t, band=band)
+        torch.cuda.synchronize()
+        assert (rasterize_winners_multi.launches - before[0],
+                rasterize_winners_multi.band_launches - before[1]) == (2, 2)
+        ref = rasterize_winners_multi_ref(v, tri, top, n_levels, persp, attrs=attrs, tile=t,
+                                          band=band)
+        for k, ((a, wa), (b, wb), (fa, fw), w) in enumerate(zip(out, ref, full, wins)):
+            y0, y1 = (band[0] * t) >> k, ((band[0] + band[1]) * t) >> k
+            for x, y in ((wa, wb), (a, b), (wa, fw[:, y0:y1]), (a, fa[:, y0:y1]), (w, wb)):
+                assert torch.equal(x, y), f"band {index} level {k}"
+        _, _, _, keys = launch_bin_multi(v, tri, top, n_levels, persp, 1e-6, t, attrs, band)
+        _, ids, starts = build_bins_multi(v, tri, top, n_levels, persp, 1e-6, t, attrs, band)
+        np.testing.assert_array_equal(keys.cpu().numpy(),
+                                      keys_of_bins(ids.cpu().numpy(), starts.cpu().numpy()))
+
+
+@pytest.mark.gpu
+def test_cuda_spatial_forward_matches_world1(cuda, tmp_path):
+    """Four gloo ranks on the one card, laid out 2 x 2 and 1 x 4, against
+    one process on the card (TF32 off): D's logits and the GAR's image
+    bands to 1e-4, D's block gradient and the reduced parameter gradients
+    to 1e-4 of each tensor's largest magnitude; K1 launched once, banded,
+    in each rank's GAR forward."""
+    from torch_parallel import Ranks
+
+    from stylerenderer_tpu_torch.models import Discriminator, GeneratorWithMap, make_noise
+
+    gen = torch.Generator().manual_seed(0)
+    face, tri = synthetic_face(6, 12, 4, 2, device="cpu")
+    vert = face(face.random_input(4, gen))
+    sp = dict(d=((32,), dict(channel_multiplier=1, seed=1)),
+              g=((16, 32, 2), dict(channel_multiplier=1, seed=2)),
+              x=torch.randn(4, 3, 32, 32, generator=gen), x_w=0.5 + torch.rand(4, generator=gen),
+              z=torch.randn(4, 32, generator=gen), vert=vert, norm=mesh_point_normal(vert, tri),
+              tri=tri, noise=make_noise(16, 1, gen),
+              img_w=0.5 + torch.rand(4, 3, 16, 16, generator=gen), layouts=[(2, 2), (1, 4)])
+    ranks = Ranks(4, dict(device="cuda", backend="gloo", one_card=True, tf32=False,
+                          run=["spatial"], spatial=sp), str(tmp_path), timeout=600)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        d = Discriminator(32, channel_multiplier=1, seed=1, device=cuda)
+        g = GeneratorWithMap(16, 32, 2, channel_multiplier=1, seed=2, device=cuda)
+        x = sp["x"].to(cuda).requires_grad_(True)
+        logits = d(x)
+        dg = torch.autograd.grad((logits[:, 0] * sp["x_w"].to(cuda)).sum(),
+                                 [x] + list(d.parameters()))
+        img = g([sp["z"].to(cuda)], (sp["vert"].to(cuda), sp["norm"].to(cuda), tri.to(cuda)),
+                noise=[n.to(cuda) for n in sp["noise"]])[0]
+        gg = torch.autograd.grad((img * sp["img_w"].to(cuda)).sum(), list(g.parameters()))
+        results = ranks.wait()
+    finally:
+        ranks.kill()
+        shutil.rmtree(tmp_path, ignore_errors=True)  # the ranks' gradients, ~1 GB
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    def close(a, b, what):
+        b = b.detach().cpu()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), f"{what}: {err:.3e} of {scale:.3e}"
+
+    for layout in ("2x2", "1x4"):
+        for r, res in enumerate(rr["spatial"][layout] for rr in results):
+            rows, band, gband, nd = res["rows"], res["band"], res["gband"], res["n_data"]
+            torch.testing.assert_close(res["logits"], logits.detach().cpu()[rows], rtol=1e-4,
+                                       atol=1e-4)
+            torch.testing.assert_close(res["image"], img.detach().cpu()[rows][:, :, gband],
+                                       rtol=1e-4, atol=1e-4)
+            close(res["d_x_grad"], dg[0][rows][:, :, band], f"{layout} rank {r} x")
+            for i, (a, b) in enumerate(zip(res["d_grads"], dg[1:])):
+                close(a, b / nd, f"{layout} rank {r} D parameter {i}")
+            for i, (a, b) in enumerate(zip(res["g_grads"], gg)):
+                close(a, b / nd, f"{layout} rank {r} G parameter {i}")
+            assert res["k1"] == (1, 1), (layout, r, res["k1"])

@@ -310,3 +310,13 @@ def single_case(name):
     make, h, w, tile, persp = SINGLE_CASES[name]
     v, tri = make()
     return v, tri, h, w, tile, persp
+
+
+# K1 by band (test_torch_spatial.py, test_torch_gpu.py): (case, levels,
+# n_space, tile), KERNEL_CASES meshes at pyramids whose smallest level
+# splits into n_space bands; tile None takes space_band's.
+# random_top64 at tile 8 keeps a sparse level (4 px) inside a band.
+BAND_CASES = [("random", 4, 2, None), ("random", 4, 4, None), ("random_persp", 4, 2, None),
+              ("random_top64", 5, 4, 8), ("random_tile32", 4, 2, 32), ("lattice", 5, 4, None),
+              ("dense_tile", 5, 2, None), ("big_triangles", 3, 2, None),
+              ("degenerate", 2, 2, None), ("ties_nan", 3, 2, None), ("nan_depth", 3, 2, None)]

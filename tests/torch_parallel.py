@@ -1,6 +1,7 @@
-"""The port's train step across ranks in spawned processes, one rank each
-(gloo on the CPU, or gloo or NCCL on cards), for
-``tests/test_torch_parallel.py`` and ``chip_smoke.py``. Imports torch and
+"""The port's train step, and its sharded D and GAR, across ranks in
+spawned processes, one rank each (gloo on the CPU, or gloo or NCCL on
+cards), for ``tests/test_torch_parallel.py``,
+``tests/test_torch_spatial.py`` and ``chip_smoke.py``. Imports torch and
 the port only, so a rank starts without JAX.
 
 ``Ranks(world, spec, out_dir)`` spawns ``world`` processes that each run
@@ -22,7 +23,8 @@ explicit rank over ``tcp://localhost``), run the scenarios that
   or ``draw_seed``: draw them with ``sample_draws`` on the device;
 - ``heads``: use ``stand_in_heads``; ``step``: the state's step;
 - ``run``: scenario names, in order: ``"helpers"``, ``"stddev"``,
-  ``"step"``, ``"screen"`` (see the functions below).
+  ``"step"``, ``"screen"``, ``"spatial"`` (see the functions below;
+  ``"spatial"`` reads ``spatial``).
 """
 
 from __future__ import annotations
@@ -348,7 +350,171 @@ def _screen(mesh, spec, device):
             "nonfinite_steps": m["nonfinite_steps"], "d": float(m["d"])}
 
 
-SCENARIOS = {"helpers": _helpers, "stddev": _stddev, "step": _step, "screen": _screen}
+def _spatial(mesh, spec, device):
+    """``spec["spatial"]``'s D and GAR on each of its ``layouts``
+    (``(n_data, n_space)``, each laid over this world by ``split_mesh``):
+    per layout, the rank's place and groups, its ``image_sharding``, D's
+    logits of its block ``shard_image(x)``, and for the loss
+    ``sum(logits * x_w[rows])`` the gradient in the block and the
+    parameters' gradients reduced by ``average_gradients``; the GAR's
+    image band for the rank's rows of ``z``, ``vert``, ``norm`` (and the
+    given whole noise maps), and for ``sum(image * img_w[rows, :, gband])``
+    (``gband`` its band of the image's rows)
+    the gradients in ``vert`` and ``norm`` and the reduced parameter
+    gradients (``"d_params"``, ``"g_params"``: of those parameters only,
+    by name); K1's launches and
+    banded launches in the GAR's forward. With ``"time": n``, also the
+    banded GAR forward's ms (mean of ``n``, no gradient) and its
+    collectives' calls and ms in one more forward (each timed alone).
+
+    ``spec["spatial"]``: ``d`` and ``g``, each ``(args, kwargs)`` of the
+    class (``seed`` among them) and optionally ``d_state``/``g_state``;
+    ``x`` ``[B, 3, H, W]``, ``x_w`` ``[B]``; ``z``, ``vert``, ``norm``,
+    ``tri``, ``noise`` (a list), ``img_w`` ``[B, 3, S, S]``; ``layouts``."""
+    import torch.distributed as dist
+
+    from stylerenderer_tpu_torch.models import Discriminator, GeneratorWithMap
+    from stylerenderer_tpu_torch.ops.rasterize_multi import rasterize_winners_multi
+    from stylerenderer_tpu_torch.parallel import image_sharding, shard_image, split_mesh
+    from stylerenderer_tpu_torch.parallel.spatial import band_rows
+
+    sp = spec["spatial"]
+    d = Discriminator(*sp["d"][0], **sp["d"][1], device=device)
+    g = GeneratorWithMap(*sp["g"][0], **sp["g"][1], device=device)
+    for net, key in ((d, "d_state"), (g, "g_state")):
+        if key in sp:
+            net.load_state_dict(sp[key], strict=True)
+    x, x_w, img_w = (sp[k].to(device) for k in ("x", "x_w", "img_w"))
+    z, vert, norm, tri = (sp[k].to(device) for k in ("z", "vert", "norm", "tri"))
+    noise = [n.to(device) for n in sp["noise"]]
+    d_params, g_params = ([p for n, p in net.named_parameters()
+                           if sp.get(key) is None or n in sp[key]]
+                          for net, key in ((d, "d_params"), (g, "g_params")))
+    out = {}
+    for nd, ns in sp["layouts"]:
+        m = split_mesh(mesh, nd, ns)
+        rows, band = image_sharding(m, x.shape[0], x.shape[2])
+        res = {"data_index": m.data_index, "space_index": m.space_index, "n_data": m.n_data,
+               "is_main": m.is_main,
+               "n_space": m.n_space, "rows": rows, "band": band,
+               "data_ranks": dist.get_process_group_ranks(m.data_group),
+               "space_ranks": (dist.get_process_group_ranks(m.space_group)
+                               if m.space_group is not None else None)}
+        xb = shard_image(m, x).clone().requires_grad_(True)
+        logits = d(xb, m)
+        grads = torch.autograd.grad((logits[:, 0] * x_w[rows]).sum(), [xb] + d_params)
+        res.update(logits=logits.detach().cpu(), d_x_grad=grads[0].cpu(),
+                   d_grads=_cpu(m.average_gradients(grads[1:])))
+        vr = vert[rows].clone().requires_grad_(True)
+        nr = norm[rows].clone().requires_grad_(True)
+        rasterize_winners_multi.launches = rasterize_winners_multi.band_launches = 0
+        img = g([z[rows]], (vr, nr, tri), noise=noise, device_mesh=m)[0]
+        res["k1"] = (rasterize_winners_multi.launches, rasterize_winners_multi.band_launches)
+        gband = band_rows(m, img_w.shape[2])
+        gs = torch.autograd.grad((img * img_w[rows][:, :, gband]).sum(), [vr, nr] + g_params)
+        res.update(gband=gband, image=img.detach().cpu(), vert_grad=gs[0].cpu(), norm_grad=gs[1].cpu(),
+                   g_grads=_cpu(m.average_gradients(gs[2:])))
+        res["halo"] = _halo_check(m, device)
+        res["layers"] = _layers_check(m, device)
+        if sp.get("time"):
+            res.update(_time_forward(g, [z[rows]], (vert[rows], norm[rows], tri), noise, m,
+                                     sp["time"], device))
+        out[f"{nd}x{ns}"] = res
+    return out
+
+
+def _halo_check(mesh, device):
+    """``halo`` of one row a rank (a map of ``n_space`` rows) with 2 rows
+    above and 3 below, reaching 2 and 3 ranks away -> (the padded band,
+    the band's gradient of ``sum(padded * w)`` with ``w`` =
+    ``arange(36).reshape(1, 2, 6, 3) + 100 * space_index``)."""
+    from stylerenderer_tpu_torch.parallel.spatial import band_rows, halo
+
+    h = mesh.n_space
+    full = torch.arange(2.0 * h * 3, device=device).reshape(1, 2, h, 3) + 1
+    band = full[:, :, band_rows(mesh, h)].clone().requires_grad_(True)
+    padded = halo(band, 2, 3, mesh)
+    w = torch.arange(36.0, device=device).reshape(1, 2, 6, 3) + 100 * mesh.space_index
+    (gb,) = torch.autograd.grad((padded * w).sum(), band)
+    return padded.detach().cpu(), gb.cpu()
+
+
+def _layers_check(mesh, device):
+    """Each banded layer on this rank's band of a seeded ``[2, 4, 16, 8]``
+    map against the same layer on the whole map, cut to the band -> per
+    layer (the output's and the band's gradient's largest error over the
+    largest magnitude), the gradient of ``sum(out * w)`` for a seeded
+    ``w``. Covers the forms D and the GAR do not reach: ``Downsample``, a
+    lone ``Blur`` and the downsampling ``ModulatedConv2d``, beside the
+    others."""
+    from stylerenderer_tpu_torch.nn.layers import (
+        Blur, ConvLayer, Downsample, EqualConv2d, ModulatedConv2d, Upsample,
+    )
+    from stylerenderer_tpu_torch.parallel.spatial import band_rows, sharded
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 16, 8, generator=gen).to(device)
+    style = torch.randn(2, 8, generator=gen).to(device)
+    torch.manual_seed(0)  # the layers' own draws, alike on every rank
+    layers = {
+        "EqualConv2d 3x3": (EqualConv2d(4, 3, 3, padding=1), False),
+        "Blur": (Blur(pad=(2, 1)), False),
+        "Upsample": (Upsample(), False),
+        "Downsample": (Downsample(), False),
+        "ConvLayer downsample": (ConvLayer(4, 3, 3, downsample=True), False),
+        "ModulatedConv2d": (ModulatedConv2d(4, 3, 3, 8), True),
+        "ModulatedConv2d upsample": (ModulatedConv2d(4, 3, 3, 8, upsample=True), True),
+        "ModulatedConv2d downsample": (ModulatedConv2d(4, 3, 3, 8, downsample=True), True),
+    }
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    out = {}
+    for name, (layer, styled) in layers.items():
+        layer = layer.to(device)
+        args = (style,) if styled else ()
+        whole = x.clone().requires_grad_(True)
+        y = layer(whole, *args)
+        w = torch.randn(y.shape, generator=gen).to(device)
+        (gw,) = torch.autograd.grad((y * w).sum(), whole)
+        rows, out_rows = band_rows(mesh, x.shape[2]), band_rows(mesh, y.shape[2])
+        band = x[:, :, rows].clone().requires_grad_(True)
+        with sharded(mesh):
+            yb = layer(band, *args)
+        (gb,) = torch.autograd.grad((yb * w[:, :, out_rows]).sum(), band)
+        out[name] = (rel(yb.detach(), y.detach()[:, :, out_rows]), rel(gb, gw[:, :, rows]))
+    return out
+
+
+def _time_forward(g, styles, face, noise, mesh, n, device):
+    """The GAR forward on ``mesh`` without gradient: its mean ms over ``n``
+    after one warm-up (host clock, the device synchronized around), then
+    one more with every collective timed alone."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.no_grad():
+        g(styles, face, noise=noise, device_mesh=mesh)
+        mesh.barrier()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            g(styles, face, noise=noise, device_mesh=mesh)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        mesh.barrier()
+        totals, undo = timed_collectives(device)
+        try:
+            g(styles, face, noise=noise, device_mesh=mesh)
+        finally:
+            undo()
+    return {"forward_ms": ms, "collectives": dict(totals)}
+
+
+SCENARIOS = {"helpers": _helpers, "stddev": _stddev, "step": _step, "screen": _screen,
+             "spatial": _spatial}
 
 
 def rank_main(rank: int, world: int, port: int, spec: dict, out_dir: str) -> None:
