@@ -1,0 +1,13 @@
+"""The device's idle share of the traced window: 1 - (union of its kernel,
+copy and set intervals) / window, in percent."""
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = {"render": "images_per_s", "invert": "step_ms"}
+
+
+def read(run):
+    if run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
