@@ -193,7 +193,7 @@ def _train(args, mesh):
                 tracing = True
             real = constrain_batch(next(loader), mesh, cfg.batch)
             t0 = time.perf_counter()
-            with trace_ctx(f"train_step {i}"):
+            with trace_ctx("train.step", args=str(i)):
                 draws = sample_draws(state.generator, cfg, face, cfg.batch,
                                      state.g.n_latent, heads)
                 # the step discards a non-finite update itself; the guard

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from stylerenderer_tpu_torch.face3d.transforms import euler_mat
+from stylerenderer_tpu_torch.utils.logging import trace_ctx
 
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -22,15 +23,16 @@ def mesh_point_normal(v: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     """Area-weighted unit vertex normals: ``v`` ``[B, nv, 3]`` (or
     ``[nv, 3]``), ``tri`` ``[nf, 3]``. Face normals (cross products, twice
     the area) are summed into their corners with ``index_add_``."""
-    tri = torch.as_tensor(tri, device=v.device).long()
-    va = v[..., tri[:, 0], :]
-    vb = v[..., tri[:, 1], :]
-    vc = v[..., tri[:, 2], :]
-    fn = torch.linalg.cross(vb - va, vc - va, dim=-1)
-    vn = torch.zeros_like(v)
-    for j in range(3):
-        vn = vn.index_add(-2, tri[:, j], fn)
-    return normalize(vn)
+    with trace_ctx("geometry.normals"):
+        tri = torch.as_tensor(tri, device=v.device).long()
+        va = v[..., tri[:, 0], :]
+        vb = v[..., tri[:, 1], :]
+        vc = v[..., tri[:, 2], :]
+        fn = torch.linalg.cross(vb - va, vc - va, dim=-1)
+        vn = torch.zeros_like(v)
+        for j in range(3):
+            vn = vn.index_add(-2, tri[:, j], fn)
+        return normalize(vn)
 
 
 POSE3D_P = (0.5, 0.1, 0.05, 0.1, 0.1, 0.1, 0.15)
@@ -50,10 +52,11 @@ def pose3D_draws(generator: torch.Generator | None, batch: int, p=POSE3D_P) -> t
 def apply_pose3D(v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """The rigid transform of the pose ``z`` ``[B, 7]`` (yaw, pitch, roll,
     tx, ty, tz, log-scale): ``v @ (exp(s) R) + t`` (row vectors)."""
-    z = z.to(v.device)
-    R = torch.exp(z[:, -1])[:, None, None] * euler_mat(z[:, :3], "yxz")
-    t = z[:, 3:6]
-    return torch.einsum("bnk,bkj->bnj", v[..., :3], R) + t[:, None, :]
+    with trace_ctx("geometry.pose"):
+        z = z.to(v.device)
+        R = torch.exp(z[:, -1])[:, None, None] * euler_mat(z[:, :3], "yxz")
+        t = z[:, 3:6]
+        return torch.einsum("bnk,bkj->bnj", v[..., :3], R) + t[:, None, :]
 
 
 def random_apply_pose3D(generator: torch.Generator | None, v: torch.Tensor,

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from stylerenderer_tpu_torch.face3d.transforms import rodrigues
+from stylerenderer_tpu_torch.utils.logging import trace_ctx
 
 
 class LinearMorphableModel:
@@ -50,8 +51,9 @@ class LinearMorphableModel:
         return x.to(self.device) * self.sigma
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        v = x @ self.basis + self.mean
-        return v.reshape(x.shape[0], -1, 3)
+        with trace_ctx("geometry.morph"):
+            v = x @ self.basis + self.mean
+            return v.reshape(x.shape[0], -1, 3)
 
     def regulation(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sum((x / self.sigma[None, :]) ** 2)

@@ -32,6 +32,7 @@ import torch
 from stylerenderer_tpu_torch.face3d.geometry import mesh_point_normal
 from stylerenderer_tpu_torch.face3d.transforms import rodrigues
 from stylerenderer_tpu_torch.models.generator import make_noise
+from stylerenderer_tpu_torch.utils.logging import trace_ctx
 
 
 @dataclass(frozen=True)
@@ -62,9 +63,10 @@ MEAN_LATENT_DRAWS = 4096
 
 def _apply_pose(vert, rvec, tvec, log_scale):
     """Rigid pose in the row-vector convention: ``v' = s * v @ R + t``."""
-    R = rodrigues(rvec)
-    s = torch.exp(log_scale)[:, :, None]  # [B, 1, 1]
-    return s * torch.einsum("bnk,bkj->bnj", vert, R) + tvec[:, None, :]
+    with trace_ctx("geometry.pose"):
+        R = rodrigues(rvec)
+        s = torch.exp(log_scale)[:, :, None]  # [B, 1, 1]
+        return s * torch.einsum("bnk,bkj->bnj", vert, R) + tvec[:, None, :]
 
 
 def _clip_by_global_norm(grads, max_norm: float) -> None:
@@ -219,9 +221,11 @@ def make_projector(
             opt.load_state_dict(copy.deepcopy(opt_state))
         hist = []
         for _ in range(steps):
-            _, _, losses = loss_fn(p, target, target_lmk, noise, mean_w)
+            with trace_ctx("project.forward"):
+                _, _, losses = loss_fn(p, target, target_lmk, noise, mean_w)
             opt.zero_grad(set_to_none=True)
-            losses["total"].backward()
+            with trace_ctx("project.backward"):
+                losses["total"].backward()
             if cfg.geo_grad_clip:
                 with torch.no_grad():
                     _clip_by_global_norm([p[k].grad for k in GEO], cfg.geo_grad_clip)

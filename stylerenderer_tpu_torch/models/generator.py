@@ -66,6 +66,7 @@ from stylerenderer_tpu_torch.ops.rasterize import (
 )
 from stylerenderer_tpu_torch.ops.resize import resize_linear
 from stylerenderer_tpu_torch.parallel import spatial
+from stylerenderer_tpu_torch.utils.logging import SYNTHESIS_SPANS, trace_ctx
 
 
 def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
@@ -223,15 +224,16 @@ class _StyleGenerator(nn.Module):
                           inject_index, truncation, truncation_latent):
         """Per-layer latents ``[B, n_latent, D]`` and the noise list
         (``randomize_noise=False`` with no ``noise``: the buffers)."""
-        if not isinstance(styles, (list, tuple)):
-            styles = [styles]
-        if not input_is_latent:
-            styles = [self.style(s) for s in styles]
-        if noise is None and not randomize_noise:
-            noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
-        latent = _mix_styles(styles, self.n_latent, inject_index, truncation,
-                             truncation_latent)
-        return latent, noise
+        with trace_ctx("gar.mapping"):
+            if not isinstance(styles, (list, tuple)):
+                styles = [styles]
+            if not input_is_latent:
+                styles = [self.style(s) for s in styles]
+            if noise is None and not randomize_noise:
+                noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
+            latent = _mix_styles(styles, self.n_latent, inject_index, truncation,
+                                 truncation_latent)
+            return latent, noise
 
 
 def _in_band(mesh, conv, *args):
@@ -385,6 +387,10 @@ class GeneratorWithMap(_StyleGenerator):
         pyramid renders by band; the others render every level whole on
         each space rank and cut the band, as GSPMD does with the JAX
         package's Pallas calls."""
+        with trace_ctx("gar.pyramid"):
+            return self._normal_pyramid(mesh, device_mesh)
+
+    def _normal_pyramid(self, mesh, device_mesh):
         vert, norm, tri = mesh
         sizes = [4] + [2 ** i for i in range(3, self.log_size + 1)]
         method = self.rasterize_method
@@ -418,31 +424,34 @@ class GeneratorWithMap(_StyleGenerator):
         On a ``device_mesh`` that splits rows over ``'space'``, the maps are
         the rank's bands, the noise maps whole, and the image is the rank's
         band."""
-        with spatial.sharded(device_mesh):
+        with trace_ctx("gar.synthesis"), spatial.sharded(device_mesh):
             return self._synthesize(latent, norm_maps, noise, generator)
 
     def _synthesize(self, latent, norm_maps, noise, generator):
         if noise is None:
             noise = [None] * self.num_layers
         norm_maps = [m.permute(0, 3, 1, 2).to(self.dtype) for m in norm_maps]
-        out = self.input(latent.shape[0]).to(self.dtype)
-        nm = norm_maps[0]
-        if self.n_stylemap != 3:
-            nm = self.norm1_pre(nm)
-        out = self._styled(0, self.conv1, out, latent[:, 0], self.norm1(nm), noise=noise[0],
-                           generator=generator)
-        skip = self.to_rgb1(out, latent[:, 1])
+        with trace_ctx(SYNTHESIS_SPANS[4]):
+            out = self.input(latent.shape[0]).to(self.dtype)
+            nm = norm_maps[0]
+            if self.n_stylemap != 3:
+                nm = self.norm1_pre(nm)
+            out = self._styled(0, self.conv1, out, latent[:, 0], self.norm1(nm),
+                               noise=noise[0], generator=generator)
+            skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for level in range(len(self.to_rgbs)):
-            nm = norm_maps[level + 1]
-            if self.n_stylemap != 3:
-                nm = self.norm_to_style_pre[level](nm)
-            maps = self.norm_to_style[level](nm)
-            out = self._styled(1 + 2 * level, self.convs[2 * level], out, latent[:, i],
-                               maps[:, :2], noise=noise[1 + 2 * level], generator=generator)
-            out = self._styled(2 + 2 * level, self.convs[2 * level + 1], out, latent[:, i + 1],
-                               maps[:, 2:], noise=noise[2 + 2 * level], generator=generator)
-            skip = self.to_rgbs[level](out, latent[:, i + 2], skip)
+            with trace_ctx(SYNTHESIS_SPANS[8 << level]):
+                nm = norm_maps[level + 1]
+                if self.n_stylemap != 3:
+                    nm = self.norm_to_style_pre[level](nm)
+                maps = self.norm_to_style[level](nm)
+                out = self._styled(1 + 2 * level, self.convs[2 * level], out, latent[:, i],
+                                   maps[:, :2], noise=noise[1 + 2 * level], generator=generator)
+                out = self._styled(2 + 2 * level, self.convs[2 * level + 1], out,
+                                   latent[:, i + 1], maps[:, 2:], noise=noise[2 + 2 * level],
+                                   generator=generator)
+                skip = self.to_rgbs[level](out, latent[:, i + 2], skip)
             i += 2
         return skip
 

@@ -86,6 +86,7 @@ from stylerenderer_tpu_torch.parallel.mesh import Mesh
 from stylerenderer_tpu_torch.train import losses
 from stylerenderer_tpu_torch.train.state import TrainState
 from stylerenderer_tpu_torch.utils.config import TrainConfig
+from stylerenderer_tpu_torch.utils.logging import trace_ctx
 
 
 @dataclass
@@ -353,30 +354,33 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
         _adam_step(opt, params, mesh.average_gradients(_grads(loss, params)))
 
     # ---- D step ----
-    # every mesh is posed for the whole global batch, as on one process (a
-    # smaller batch can round the vertices otherwise), and cut to the rows
-    d_vert, d_norm, _ = posed_mesh(face, tri, draws.d_face, draws.d_pose)
-    with torch.no_grad():
-        fake = g(local.d_styles.styles(), (d_vert[rows], d_norm[rows], tri),
-                 inject_index=local.d_styles.inject, noise=local.d_noise)[0]
-    real_aug, fake_d = real, fake
-    if cfg.augment:
-        real_aug = ada_augment(real, state.ada_p, local.d_aug_real)
-        fake_d = ada_augment(fake, state.ada_p, local.d_aug_fake)
-    real_pred = gather(disc(real_aug))
-    fake_pred = gather(disc(fake_d))
-    d_loss = losses.d_logistic_loss(real_pred, fake_pred)
-    update(state.d_optim, d_params, d_loss)
-    real_pred = real_pred.detach()
-    metrics["d"] = d_loss.detach()
-    metrics["real_score"] = real_pred.mean()
-    metrics["fake_score"] = fake_pred.detach().mean()
+    with trace_ctx("train.d"):
+        # every mesh is posed for the whole global batch, as on one process (a
+        # smaller batch can round the vertices otherwise), and cut to the rows
+        d_vert, d_norm, _ = posed_mesh(face, tri, draws.d_face, draws.d_pose)
+        with torch.no_grad():
+            fake = g(local.d_styles.styles(), (d_vert[rows], d_norm[rows], tri),
+                     inject_index=local.d_styles.inject, noise=local.d_noise)[0]
+        real_aug, fake_d = real, fake
+        if cfg.augment:
+            real_aug = ada_augment(real, state.ada_p, local.d_aug_real)
+            fake_d = ada_augment(fake, state.ada_p, local.d_aug_fake)
+        real_pred = gather(disc(real_aug))
+        fake_pred = gather(disc(fake_d))
+        d_loss = losses.d_logistic_loss(real_pred, fake_pred)
+        update(state.d_optim, d_params, d_loss)
+        real_pred = real_pred.detach()
+        metrics["d"] = d_loss.detach()
+        metrics["real_score"] = real_pred.mean()
+        metrics["fake_score"] = fake_pred.detach().mean()
 
     # ---- ADA controller ----
     ada_p, ada_signs, ada_count = state.ada_p, state.ada_signs, state.ada_count
     if cfg.augment and cfg.augment_p <= 0:
-        metrics["r_t"] = torch.where(ada_count > 0, ada_signs / ada_count, zero)
-        ada_p, ada_signs, ada_count = ada_update(cfg, ada_p, ada_signs, ada_count, real_pred)
+        with trace_ctx("train.ada"):
+            metrics["r_t"] = torch.where(ada_count > 0, ada_signs / ada_count, zero)
+            ada_p, ada_signs, ada_count = ada_update(cfg, ada_p, ada_signs, ada_count,
+                                                     real_pred)
     else:
         metrics["r_t"] = zero
     metrics["ada_p"] = ada_p
@@ -384,56 +388,60 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
     # ---- lazy R1 ----
     metrics["r1"] = zero
     if state.step % cfg.d_reg_every == 0:
-        r1 = losses.r1_penalty(disc, real, gather)
-        update(state.d_optim, d_params, cfg.r1 / 2.0 * r1 * cfg.d_reg_every)
-        metrics["r1"] = r1.detach()
+        with trace_ctx("train.r1"):
+            r1 = losses.r1_penalty(disc, real, gather)
+            update(state.d_optim, d_params, cfg.r1 / 2.0 * r1 * cfg.d_reg_every)
+            metrics["r1"] = r1.detach()
 
     # ---- G step ----
-    vert_all, norm_all, _ = posed_mesh(face, tri, draws.g_face, draws.g_pose)
-    if "lmk" in heads:
-        vert_all, norm_all = pair_geometry(vert_all), pair_geometry(norm_all)
-    vert_g, norm_g = vert_all[rows], norm_all[rows]
-    fimg, _, norms = g(local.g_styles.styles(), (vert_g, norm_g, tri),
-                       inject_index=local.g_styles.inject, noise=local.g_noise,
-                       return_normals="sfs" in heads)
-    fimg_d = fimg
-    if cfg.augment and "lmk" not in heads:
-        fimg_d = ada_augment(fimg, ada_p, local.g_aug)
-    g_loss = losses.g_nonsaturating_loss(gather(disc(fimg_d)))
-    for name, (weight, value) in head_losses(heads, fimg, norms, batch, gather).items():
-        g_loss = g_loss + weight * value
-        metrics[name] = value.detach()
-    update(state.g_optim, g_params, g_loss)
-    metrics["g"] = g_loss.detach()
+    with trace_ctx("train.g"):
+        vert_all, norm_all, _ = posed_mesh(face, tri, draws.g_face, draws.g_pose)
+        if "lmk" in heads:
+            vert_all, norm_all = pair_geometry(vert_all), pair_geometry(norm_all)
+        vert_g, norm_g = vert_all[rows], norm_all[rows]
+        fimg, _, norms = g(local.g_styles.styles(), (vert_g, norm_g, tri),
+                           inject_index=local.g_styles.inject, noise=local.g_noise,
+                           return_normals="sfs" in heads)
+        fimg_d = fimg
+        if cfg.augment and "lmk" not in heads:
+            fimg_d = ada_augment(fimg, ada_p, local.g_aug)
+        g_loss = losses.g_nonsaturating_loss(gather(disc(fimg_d)))
+        for name, (weight, value) in head_losses(heads, fimg, norms, batch, gather).items():
+            g_loss = g_loss + weight * value
+            metrics[name] = value.detach()
+        update(state.g_optim, g_params, g_loss)
+        metrics["g"] = g_loss.detach()
 
     # ---- lazy path-length regularization ----
     mean_path_length = state.mean_path_length
     metrics["path"] = metrics["path_length"] = zero
     if state.step % cfg.g_reg_every == 0:
-        # the path batch is the global batch's first rows
-        with torch.no_grad():
-            pyramid = g.normal_pyramid((vert_all[path_rows], norm_all[path_rows], tri))
-        w = [g.get_latent(z) for z in local.p_styles.styles()]
-        latent = _mix_styles(w, g.n_latent, local.p_styles.inject, None, None)
+        with trace_ctx("train.path"):
+            # the path batch is the global batch's first rows
+            with torch.no_grad():
+                pyramid = g.normal_pyramid((vert_all[path_rows], norm_all[path_rows], tri))
+            w = [g.get_latent(z) for z in local.p_styles.styles()]
+            latent = _mix_styles(w, g.n_latent, local.p_styles.inject, None, None)
 
-        def synth(lat, *maps):
-            return g.synthesize(lat, list(maps), noise=local.p_noise)
+            def synth(lat, *maps):
+                return g.synthesize(lat, list(maps), noise=local.p_noise)
 
-        pl = gather(losses.path_lengths_multi(synth, local.p_probe, (latent, *pyramid)))
-        penalty, mean_path_length = losses.path_regularize(pl, state.mean_path_length)
-        update(state.g_optim, g_params, cfg.path_regularize * cfg.g_reg_every * penalty)
-        metrics["path"] = penalty.detach()
-        metrics["path_length"] = pl.detach().mean()
+            pl = gather(losses.path_lengths_multi(synth, local.p_probe, (latent, *pyramid)))
+            penalty, mean_path_length = losses.path_regularize(pl, state.mean_path_length)
+            update(state.g_optim, g_params, cfg.path_regularize * cfg.g_reg_every * penalty)
+            metrics["path"] = penalty.detach()
+            metrics["path_length"] = pl.detach().mean()
     metrics["mean_path_length"] = mean_path_length
 
     # ---- the finite screen, then the EMA ----
-    if all_finite(metrics.values(), g_params + d_params, mesh):
-        ema_update(list(state.g_ema.parameters()), g_params, cfg.ema_decay)
-        state.mean_path_length = mean_path_length
-        state.ada_p, state.ada_signs, state.ada_count = ada_p, ada_signs, ada_count
-        state.step += 1
-    else:
-        _restore_backup(state, host_steps)
-        state.nonfinite_count += 1
+    with trace_ctx("train.finish"):
+        if all_finite(metrics.values(), g_params + d_params, mesh):
+            ema_update(list(state.g_ema.parameters()), g_params, cfg.ema_decay)
+            state.mean_path_length = mean_path_length
+            state.ada_p, state.ada_signs, state.ada_count = ada_p, ada_signs, ada_count
+            state.step += 1
+        else:
+            _restore_backup(state, host_steps)
+            state.nonfinite_count += 1
     metrics["nonfinite_steps"] = state.nonfinite_count
     return metrics

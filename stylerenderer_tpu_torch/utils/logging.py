@@ -8,14 +8,17 @@ to tensorboardX when it is installed and to wandb when asked.
 Across ranks only rank 0 writes (``rank``: other ranks' loggers
 write nothing). ``StepTimer`` tracks the rolling step time and images
 per second, of the global batch that its caller names.
-``trace_ctx`` names a span in a profiler trace; ``start_profiler_trace``
-and ``stop_profiler_trace`` bracket one ``torch.profiler`` trace of the
-process (CPU, and the card's kernels when there is one) and write it as a
-Chrome trace, as ``jax.profiler.start_trace``/``stop_trace`` do.
+``trace_ctx`` names a span in a profiler trace, and only while a
+profiler runs; ``SPANS`` lists every span the package emits, with its
+layer. ``start_profiler_trace`` and ``stop_profiler_trace`` bracket one
+``torch.profiler`` trace of the process (CPU, and the card's kernels when
+there is one) and write it as a Chrome trace, as
+``jax.profiler.start_trace``/``stop_trace`` do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -113,10 +116,42 @@ class StepTimer:
         return batch / t if t > 0 else 0.0
 
 
-def trace_ctx(name: str):
-    """A named span in a profiler trace (``torch.profiler.record_function``);
-    spans nest."""
-    return torch.profiler.record_function(name)
+# the resolutions of the synthesis, 4 to 1024 px, each with its span
+SYNTHESIS_SPANS = {2 ** i: f"synthesis.r{2 ** i}" for i in range(2, 11)}
+
+# every span the package emits -> its layer (PERF.md's list of layers)
+SPANS = {
+    "geometry.morph": "entry",
+    "geometry.pose": "entry",
+    "geometry.normals": "entry",
+    "gar.mapping": "mapping network",
+    "gar.pyramid": "normal pyramid",
+    "gar.synthesis": "synthesis",
+    **{name: "synthesis" for name in SYNTHESIS_SPANS.values()},
+    "project.forward": "whole forward or step",
+    "project.backward": "pyramid backward, synthesis backward",
+    "train.step": "training",
+    "train.d": "training",
+    "train.ada": "training",
+    "train.r1": "training",
+    "train.g": "training",
+    "train.path": "training",
+    "train.finish": "training",
+}
+
+_OFF = contextlib.nullcontext()
+
+
+def trace_ctx(name: str, args: str | None = None):
+    """A span named ``name`` (one of ``SPANS``) in a profiler trace, a
+    ``torch.profiler.record_function`` range on the profiler's timeline,
+    beside the card's kernels; spans nest. ``args`` carries a per-call
+    identity, such as a step number. With no profiler running it is one
+    shared null context: a span costs a check of the profiler's state and
+    nothing more (a ``record_function`` costs ~15 us even then)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name, args)
 
 
 def start_profiler_trace(log_dir: str) -> None:

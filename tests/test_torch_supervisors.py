@@ -49,6 +49,7 @@ from stylerenderer_tpu_torch.supervisors import (
 from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
 from stylerenderer_tpu_torch.train.step import StepDraws, StyleDraws, pair_geometry, posed_mesh
 from stylerenderer_tpu_torch.utils.config import TrainConfig
+from stylerenderer_tpu_torch.utils.logging import SPANS
 from stylerenderer_tpu_torch.utils.weights import (
     discriminator_state_dict_from_jax,
     face_normals_state_dict_from_jax,
@@ -444,13 +445,15 @@ def test_cli_train_with_heads(shard, tmp_path, capsys):
     (["--profile_steps", "2"], "--profile_steps is not ported"),
     (["FOLDER"], "image-folder data is not ported"),
 ])
-def test_cli_train_takes_profile_bfm_and_folder(shard, tmp_path, capsys, argv, why):
+def test_cli_train_takes_profile_bfm_and_folder(shard, tmp_path, capsys, monkeypatch, argv,
+                                                why):
     """``--profile_steps``, ``--bfm`` and image folders, refused with the
     messages ``why`` before the profiler window, the BFM loader and the
     folder dataset were ported, train now: 2 steps whose second (the
     window of steps 2..3, cut by the run's end) is traced to
-    ``profile/trace.json``, a step on the BFM file's mesh, and a step on a
-    folder of the shard's images."""
+    ``profile/trace.json`` (one ``train.step`` span with its step in
+    ``args``, its sections inside it), a step on the BFM file's mesh, and
+    a step on a folder of the shard's images."""
     import scipy.io
     from torch_face_models import bfm_dict
 
@@ -472,6 +475,12 @@ def test_cli_train_takes_profile_bfm_and_folder(shard, tmp_path, capsys, argv, w
     else:
         argv = [shard] + argv
     steps = 2 if "--profile_steps" in argv else 1
+    made, real = [], torch.profiler.record_function
+
+    def spy(name, args=None):
+        made.append((name, args))
+        return real(name, args)
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
     out = tmp_path / "run"
     state = main(argv + ["--iter", str(steps), "--batch", "2", "--log_every", "1", "--seed",
                          "0", "--out_dir", str(out)] + TINY)
@@ -479,5 +488,18 @@ def test_cli_train_takes_profile_bfm_and_folder(shard, tmp_path, capsys, argv, w
     assert why not in capsys.readouterr().err
     if steps == 2:
         with open(out / "profile" / "trace.json") as f:
-            names = {e.get("name") for e in json.load(f)["traceEvents"]}
-        assert "train_step 1" in names and "train_step 0" not in names
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        # steps 2..3 asked for, the run ends after step 2: one step traced,
+        # its step in args (which the profiler takes as the range's input;
+        # the Chrome trace keeps the name), the sections of a plain step
+        # (no R1, no path term) inside it
+        names = [e["name"] for e in events]
+        assert names.count("train.step") == 1
+        assert [a for n, a in made if n == "train.step"] == ["1"]
+        assert {n for n, _ in made} <= set(SPANS)
+        assert {"train.d", "train.g", "train.finish"} <= set(names)
+        assert "train.r1" not in names and "train.path" not in names
+        step = next(e for e in events if e["name"] == "train.step")
+        for e in events:
+            if e["name"] in SPANS and e["name"].startswith("train."):
+                assert step["ts"] <= e["ts"] and e["ts"] + e["dur"] <= step["ts"] + step["dur"]
