@@ -81,7 +81,15 @@ entry points a user calls, and prints what it measured:
   gradients), each rank's K1 launches, the banded forward and its halo
   exchanges timed;
 - the generation CLI, and both CLIs (``generate``, ``project``) on the
-  training phase's checkpoint (``--ckpt``).
+  training phase's checkpoint (``--ckpt``);
+- the styled conv's epilogue kernel (phase 3c, ``csrc/fused_act.cu``):
+  at B=16 against its plain chain at every (C, H) of the 1024 px
+  synthesis, the ResBlocks' channels-last maps and the mapping's
+  ``[16, 512]``, its launch shape, its time alone at 1024^2 (B=16, C=32)
+  and 512^2 (C=64) in bf16 beside its byte bound, and its launches in one
+  no-grad GAR forward at 1024 and 256 px, its image against the plain
+  path's; every path below reports its own epilogue launches, and the
+  banded no-grad forwards of phase 4m only the mapping's.
 
 K1 is timed at the ``each`` shapes (7 levels, C=3), at the training
 shapes (the 9,024-triangle mesh at B=16 and B=8, 7 levels, C=3) and at
@@ -538,7 +546,7 @@ def time_step_kinds(torch, state, cfg, real, face, tri, run_path, label, heads=(
         kind_peak = torch.cuda.max_memory_allocated()
         _, counts = run_path(f"{label}, {kind}", one)
         n_k1 = 2 if kind == "plain" else 3
-        if counts != {"rasterize_multi": n_k1, "rasterize_single": 0}:
+        if raster(counts) != {"rasterize_multi": n_k1, "rasterize_single": 0}:
             raise AssertionError(f"{label} ({kind}): launches {counts}")
         prof = profile_step(torch, one)
         wall, busy, n_events = prof["wall_ms"], prof["busy_ms"], prof["events"]
@@ -613,7 +621,7 @@ def train_phase(torch, np, dev, shard, out, run_path, face, tri, check_k1):
              for i in range(TRAIN_STEPS)]
     want = {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds) + 1,
             "rasterize_single": 0}  # + 1: the EMA sample grid
-    if counts != want:
+    if raster(counts) != want:
         raise AssertionError(f"train path: launches {counts}, expected {want}")
     rows = metrics_rows(out, TRAIN_STEPS, "train path")
     for r, kind in zip(rows, kinds):
@@ -737,7 +745,7 @@ def inversion_phase(torch, np, dev, face, tri, run_path, check_fitted):
         kernel = "rasterize_multi" if fused else "rasterize_single"
         want = {"rasterize_multi": 0, "rasterize_single": 0}
         want[kernel] = INV_ITERS + 1  # one forward a step, one for the final render
-        if counts != want:
+        if raster(counts) != want:
             raise AssertionError(f"{name}: launches {counts}, expected {want}")
         hist = out["loss_history"].cpu().numpy()
         if hist.shape != (INV_ITERS,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]:
@@ -807,8 +815,8 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
                            lambda: calc_main([shard, "--size", "256", "--out", stats]))
     calc_s = time.perf_counter() - t0
     mu, cov = load_stats(stats)
-    if (out != stats or counts != none or mu.shape != (2048,) or cov.shape != (2048, 2048)
-            or not (np.isfinite(mu).all() and np.isfinite(cov).all())):
+    if (out != stats or raster(counts) != none or mu.shape != (2048,)
+            or cov.shape != (2048, 2048) or not (np.isfinite(mu).all() and np.isfinite(cov).all())):
         raise AssertionError(f"cli calc_inception: {out}, launches {counts}, stats "
                              f"{mu.shape} {cov.shape}")
     log(f"eval: cli.calc_inception on the synth shard ({SYNTH_IMAGES} images, 256 px): "
@@ -832,7 +840,7 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
     finally:
         GeneratorWithMap.normal_pyramid = pyramid
     n_batches = FID_SAMPLES // FID_BATCH
-    if counts != {"rasterize_multi": n_batches, "rasterize_single": 0}:
+    if raster(counts) != {"rasterize_multi": n_batches, "rasterize_single": 0}:
         raise AssertionError(f"cli fid: launches {counts}, expected {n_batches} of K1")
     if not (np.isfinite(fid) and fid > 0) or len(seen) != n_batches:
         raise AssertionError(f"cli fid: {fid}, {len(seen)} batches rendered")
@@ -875,7 +883,7 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
         "--batch", str(PPL_BATCH)]))
     ppl_s = time.perf_counter() - t0
     want = {"rasterize_multi": 2 * PPL_SAMPLES // PPL_BATCH, "rasterize_single": 0}
-    if counts != want or not np.isfinite(ppl):
+    if raster(counts) != want or not np.isfinite(ppl):
         raise AssertionError(f"cli ppl: {ppl}, launches {counts}, expected {want}")
     log(f"eval: cli.ppl --with_map --ckpt, {PPL_SAMPLES} pairs, B={PPL_BATCH}: ppl {ppl:.4f} "
         f"(random-feature LPIPS), {ppl_s:.1f} s host clock (set-up included), launches "
@@ -913,7 +921,7 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
     inv_peak = torch.cuda.max_memory_allocated()
     want = {"rasterize_multi": INV_ITERS + 1, "rasterize_single": 0}
     hist = out["loss_history"].cpu().numpy()
-    if counts != want:
+    if raster(counts) != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     if (hist.shape != (INV_ITERS,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]
             or "lpips" not in out["losses"] or not float(out["losses"]["lpips"]) > 0):
@@ -950,7 +958,7 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
         gen_rate = BATCH * GEN_FORWARDS / (time.perf_counter() - t0)
         fwd_ms = cuda_ms(torch, lambda: gen([zs[0]]), 5)
     gen_peak = torch.cuda.max_memory_allocated()
-    if counts != none or any(tuple(i.shape) != (BATCH, 3, 256, 256)
+    if raster(counts) != none or any(tuple(i.shape) != (BATCH, 3, 256, 256)
                              or not bool(torch.isfinite(i).all()) for i in images):
         raise AssertionError(f"generator: launches {counts} or bad images")
     del images, gen
@@ -958,7 +966,7 @@ def eval_phase(torch, np, dev, smi, shard, ckpt, face, tri, synth_mesh, targets,
         paths, counts = run_path("eval cli generate", lambda: generate_main([
             "--size", "256", "--sample", "4", "--pics", "1", "--out", tmp]))
         with open(paths[0], "rb") as f:
-            if counts != none or f.read(8) != b"\x89PNG\r\n\x1a\n":
+            if raster(counts) != none or f.read(8) != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError(f"cli generate without --with_map: launches {counts}")
     log(f"eval: Generator(256, 512, 8, channel_multiplier=2) f32, B={BATCH}: {gen_rate:.1f} "
         f"renders/s (host clock, {GEN_FORWARDS} forwards), {fwd_ms:.3f} ms a forward (CUDA "
@@ -1034,7 +1042,7 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
     reg_s = time.perf_counter() - t0
     reg_peak = torch.cuda.max_memory_allocated()
     hist = torch.stack(hist).cpu().numpy()
-    if counts != {"rasterize_multi": REG_STEPS, "rasterize_single": 0}:
+    if raster(counts) != {"rasterize_multi": REG_STEPS, "rasterize_single": 0}:
         raise AssertionError(f"regressor train: launches {counts}, expected {REG_STEPS} of K1")
     first, last = float(hist[:10].mean()), float(hist[-10:].mean())
     if not (np.isfinite(hist).all() and last < first):
@@ -1075,7 +1083,7 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
     t0 = time.perf_counter()
     out, counts = run_path(name, lambda: project(0, tgt, lmk))
     inv_ms = (time.perf_counter() - t0) * 1e3 / INV_ITERS
-    if counts != {"rasterize_multi": INV_ITERS + 1, "rasterize_single": 0}:
+    if raster(counts) != {"rasterize_multi": INV_ITERS + 1, "rasterize_single": 0}:
         raise AssertionError(f"{name}: launches {counts}, expected {INV_ITERS + 1} of K1")
     ihist = out["loss_history"].cpu().numpy()
     if ihist.shape != (INV_ITERS,) or not np.isfinite(ihist).all() or not ihist[-1] < ihist[0]:
@@ -1104,7 +1112,7 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
              for i in range(HEADS_STEPS)]
     want = {"rasterize_multi": sum(3 if k != "plain" else 2 for k in kinds) + 1,
             "rasterize_single": 0}  # + 1: the EMA sample grid
-    if counts != want:
+    if raster(counts) != want:
         raise AssertionError(f"train heads: launches {counts}, expected {want}")
     with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -1130,8 +1138,14 @@ def regressor_heads_phase(torch, np, dev, smi, work, synth_mesh, mesh, targets, 
     log(f"phase 4g: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
+def raster(counts):
+    """A path's launch counts of the rasterizer kernels (K1, K2), which its
+    checks fix; the epilogue's are reported beside them."""
+    return {k: counts[k] for k in ("rasterize_multi", "rasterize_single")}
+
+
 def check_launches(counts, want, what):
-    if counts != want:
+    if raster(counts) != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
@@ -1963,6 +1977,179 @@ def median_ms(torch, fn, iters: int) -> float:
     return sorted(times)[iters // 2]
 
 
+def epilogue_phase(torch, dev, smi, face, tri, run_path):
+    """Phase 3c: the styled conv's epilogue kernel (``ops/fused_act.py``).
+    At B=16, bit for bit, at every (C, H) of the 1024 px synthesis with and
+    without FiLM (a view of a channels-last map) and ``[B,1,H,W]`` float32
+    noise, at the ResBlocks' channels-last maps and at the mapping's
+    ``[16, 512]``: float32 the plain chain's bits, bfloat16 the float32
+    chain's rounded once (each call one launch, the counts at 0 before);
+    at 1024^2, B=2, bfloat16 within one rounding of the float64 oracle. Its
+    launch shapes; its time alone at 1024^2 (B=16, C=32) and 512^2 (C=64)
+    in bf16 beside its byte bound and the plain chain's time. One no-grad
+    GAR forward at 1024 and 256 px with the counts at 0 (43 and 35
+    launches), its image against the plain path's within the render cell's
+    ``image_rel_l2`` limit, and the synthesis timed on both paths. -> the
+    kernel's numbers for the kernels line."""
+    import ctypes
+
+    import torch_fused_act as tfa
+
+    from stylerenderer_tpu_torch.face3d import mesh_point_normal, random_apply_pose3D
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
+    from stylerenderer_tpu_torch.ops import _build, fused_act
+
+    def inputs(b, c, s, dtype, film=True, film_last=True):
+        """The GAR's epilogue arguments at one level: FiLM a view of the
+        ResBlock's channels-last 4-channel map, per-sample float32 noise."""
+        g = torch.Generator(dev).manual_seed(c * s)
+        a = {"y": torch.randn(b, c, s, s, generator=g, device=dev).to(dtype),
+             "bias": 0.1 * torch.randn(c, generator=g, device=dev),
+             "demod": 0.5 + torch.rand(b, c, generator=g, device=dev),
+             "noise": torch.randn(b, 1, s, s, generator=g, device=dev),
+             "noise_weight": torch.full((1,), 0.1, device=dev)}
+        if film:
+            maps = torch.randn(b, 4, s, s, generator=g, device=dev).to(dtype)
+            if film_last:
+                maps = maps.contiguous(memory_format=torch.channels_last)
+            a["film"] = maps[:, :2]
+        return a
+
+    def nbytes(a):
+        y, film = a["y"], a["film"]
+        return (2 * y.numel() * y.element_size() + 2 * film[:, 0].numel() * film.element_size()
+                + a["noise"].numel() * a["noise"].element_size())
+
+    max_err = 0.0
+
+    def check(out, a, what):
+        """``out`` against the plain chain (float32) or the float32 chain
+        rounded once (bfloat16), bit for bit."""
+        nonlocal max_err
+        f32 = out.dtype == torch.float32
+        ref = fused_act.fused_bias_act_ref(**a) if f32 else tfa.rounded_once(**a)
+        if not torch.equal(tfa.bits(out), tfa.bits(ref)):
+            raise AssertionError(f"epilogue {what}: not the "
+                                 f"{'plain chain' if f32 else 'f32 chain rounded once'}'s bits")
+        max_err = max(max_err, float((out.float() - ref.float()).abs().max()))
+
+    def bit_checks():
+        n = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for c, s in tfa.SYNTH_1024:
+                for film in (True, False):
+                    a = inputs(16, c, s, dtype, film=film)
+                    check(fused_act.fused_bias_act(**a), a, f"{dtype} C={c} H={s} film={film}")
+                    n += 1
+                    del a
+            g = torch.Generator(dev).manual_seed(5)
+            for c, s in tfa.RESBLOCK:
+                a = {"y": torch.randn(16, c, s, s, generator=g, device=dev).to(dtype).contiguous(
+                         memory_format=torch.channels_last),
+                     "bias": 0.1 * torch.randn(c, generator=g, device=dev)}
+                out = fused_act.fused_leaky_relu(a["y"], a["bias"])
+                if not out.is_contiguous(memory_format=torch.channels_last):
+                    raise AssertionError(f"epilogue {dtype} ResBlock C={c} H={s}: not "
+                                         "channels-last")
+                check(out, a, f"{dtype} channels-last ResBlock map C={c} H={s}")
+                n += 1
+            a = {"y": torch.randn(16, 512, generator=g, device=dev).to(dtype),
+                 "bias": 0.1 * torch.randn(512, generator=g, device=dev)}
+            check(fused_act.fused_leaky_relu(a["y"], a["bias"], dim=-1), a,
+                  f"{dtype} mapping [16, 512]")
+            n += 1
+        return n
+
+    for name, (b, c, s) in (("1024^2", (16, 32, 1024)), ("512^2", (16, 64, 512)),
+                            ("4^2", (16, 512, 4))):
+        shape = (ctypes.c_int * 9)()
+        rc = _build.library("fused_act").sr_fused_bias_act_shape(
+            b, c, s, s, 1, 1, ctypes.cast(shape, ctypes.c_void_p))
+        if rc != 0:
+            raise AssertionError(f"sr_fused_bias_act_shape: {rc}")
+        v, tx, ty, tiles, chunks, chunk, rows, regs, local = shape
+        log(f"epilogue launch shape at {name}, B={b}, C={c}, bf16: V={v}, block {tx} x {ty}, "
+            f"{tiles} pixel tiles x {b} samples x {chunks} channel chunks of {chunk}, rows "
+            f"{rows}; {regs} registers, {local} B local")
+    res = {}
+    with torch.no_grad():
+        n, counts = run_path("epilogue checks", bit_checks)
+        if counts != {"rasterize_multi": 0, "rasterize_single": 0, "fused_bias_act": n}:
+            raise AssertionError(f"epilogue checks: launches {counts}, expected {n} of it")
+        log(f"check: epilogue at B=16, every (C, H) of the 1024 px synthesis with and without "
+            f"FiLM (channels-last map) and [B,1,H,W] noise, the ResBlocks' channels-last maps "
+            f"and the mapping's [16, 512], f32 and bf16: f32 bit-equal to the plain chain, bf16 "
+            f"bit-equal to the f32 chain rounded once; {n} launches")
+        a = inputs(2, 32, 1024, torch.bfloat16)
+        worst = tfa.max_gap(fused_act.fused_bias_act(**a), *tfa.oracle(**a))
+        if worst > 1.0:
+            raise AssertionError(f"epilogue bf16: {worst} roundings off the float64 oracle")
+        del a
+        log(f"check: epilogue at 1024^2, B=2, C=32, bf16, FiLM and noise: {worst:.3f} of one "
+            f"rounding off the float64 oracle at worst")
+        for name, (b, c, s) in (("1024^2", (16, 32, 1024)), ("512^2", (16, 64, 512))):
+            for last in (True, False):
+                a = inputs(b, c, s, torch.bfloat16, film_last=last)
+                ms = cuda_ms(torch, lambda: fused_act.fused_bias_act(**a), 20)
+                plain_ms = cuda_ms(torch, lambda: fused_act.fused_bias_act_ref(**a), 5)
+                nb = nbytes(a)
+                bound_ms = 1e3 * nb / HBM_BYTES_PER_S
+                log(f"epilogue kernel at {name}, B={b}, C={c}, bf16, FiLM from a "
+                    f"{'channels-last' if last else 'contiguous'} map, [B,1,H,W] f32 noise: "
+                    f"{ms:.4f} ms (CUDA events, 20 calls), bound {bound_ms:.4f} ms by bytes "
+                    f"({nb} bytes at 3.35 TB/s): {100 * bound_ms / ms:.1f}% of it; plain chain "
+                    f"{plain_ms:.4f} ms")
+                if last:  # the GAR's form
+                    key = "" if s == 1024 else f"_{s}"
+                    res.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
+                                f"bound_ms{key}": bound_ms})
+                del a
+
+    # one forward a size with the counts at 0, and the synthesis on each path
+    g = torch.Generator().manual_seed(9)
+    for size, batch in ((1024, 16), (256, 16)):
+        gen = GeneratorWithMap(size, 512, 8, dtype=torch.bfloat16, seed=0, device=dev).eval()
+        vert = random_apply_pose3D(g, face(face.random_input(batch, g)))
+        mesh = (vert, mesh_point_normal(vert, tri), tri)
+        z = torch.randn(batch, 512, generator=g).to(dev)
+        noise = [n.to(dev) for n in make_noise(size, batch, g)]
+        with torch.no_grad():
+            gen([z], mesh, noise=noise)
+            torch.cuda.synchronize()
+            img, counts = run_path(f"epilogue forward {size}",
+                                   lambda: gen([z], mesh, noise=noise)[0].float())
+            want = {1024: 17 + 18 + 8, 256: 13 + 14 + 8}[size]
+            if counts["fused_bias_act"] != want:
+                raise AssertionError(f"{size} px forward: launches {counts}, not {want} of the "
+                                     "epilogue")
+            latent = gen.get_latent(z)[:, None, :].repeat(1, gen.n_latent, 1)
+            maps = gen.normal_pyramid(mesh)
+            syn_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps, noise), 5)
+            real = fused_act.takes_kernel
+            fused_act.takes_kernel = lambda *a: False
+            try:
+                before = fused_act.fused_bias_act.launches
+                plain = gen([z], mesh, noise=noise)[0].float()
+                plain_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps, noise), 5)
+                torch.cuda.synchronize()
+                if fused_act.fused_bias_act.launches != before:
+                    raise AssertionError(f"{size} px plain path launched the epilogue")
+            finally:
+                fused_act.takes_kernel = real
+        rel = float((img - plain).norm() / plain.norm())
+        if not rel < 0.07:
+            raise AssertionError(f"{size} px forward: image {rel} relative L2 from the plain "
+                                 "path's, over 0.07")
+        log(f"epilogue: one no-grad GeneratorWithMap({size}, 512, 8) bf16 forward, B={batch}: "
+            f"launches {counts} (the epilogue's: styled convs, ResBlock activations, mapping "
+            f"layers); image {rel:.6f} relative L2 from the plain path's; synthesis "
+            f"{syn_ms:.3f} ms with the kernel, {plain_ms:.3f} ms on the plain path (CUDA "
+            f"events, 5 calls; {smi})")
+        del gen, maps, latent, img, plain
+    res["max_abs_err"] = max_err
+    return res
+
+
 def binned_phase(torch, smi, cases, run_path):
     """Phase 4j: the binned search (``ops/rasterize_binned.py``, the JAX
     package's XLA scatter search as plain PyTorch, no kernel) on CUDA
@@ -1984,7 +2171,7 @@ def binned_phase(torch, smi, cases, run_path):
     for name, vert, tri, h, w, ref in cases:
         (win, n_big), counts = run_path(f"binned {name}", lambda: rasterize_winners_binned(
             vert, tri, h, w, return_overflow=True))
-        if counts != {"rasterize_multi": 0, "rasterize_single": 0}:
+        if raster(counts) != {"rasterize_multi": 0, "rasterize_single": 0}:
             raise AssertionError(f"binned {name}: launched {counts}")
         if int(n_big.max()) > BIG_CAP:
             differ = float((win != ref).float().mean())
@@ -2008,7 +2195,7 @@ def binned_phase(torch, smi, cases, run_path):
     name, vert, tri, h, w, _ = cases[0]
     _, counts = run_path("binned auto cuda", lambda: _dispatch_winners(
         vert, tri, h, w, False, EPS, "auto"))
-    if counts != {"rasterize_multi": 0, "rasterize_single": 1}:
+    if raster(counts) != {"rasterize_multi": 0, "rasterize_single": 1}:
         raise AssertionError(f"'auto' on a CUDA tensor at {h}x{w} launched {counts}")
     log(f"check: 'auto' on a CUDA tensor ({name}) launches K2 once, never the binned search")
     log(f"phase 4j: {time.perf_counter() - t_phase:.1f} s; {smi}")
@@ -2190,7 +2377,7 @@ def parallel_phase(torch, np, dev, smi, shard, work, run_path, path_launches, ch
                 for k in env:
                     os.environ.pop(k)
             seconds[name] = time.perf_counter() - t0
-            if counts != want:
+            if raster(counts) != want:
                 raise AssertionError(f"parallel {name}: launches {counts}, expected {want}")
     rows = {k: metrics_rows(out[k], TRAIN_STEPS, f"parallel {k}") for k in ("none", "nccl")}
     for a, b in zip(rows["none"], rows["nccl"]):
@@ -2257,8 +2444,9 @@ def parallel_phase(torch, np, dev, smi, shard, work, run_path, path_launches, ch
     del st, draws, records, final, rec
     for r, res in enumerate(results):
         step = res["step"]
-        path_launches[f"parallel gloo rank {r}"] = {"rasterize_multi": step["k1_launches"],
-                                                    "rasterize_single": 0}
+        path_launches[f"parallel gloo rank {r}"] = {
+            "rasterize_multi": step["k1_launches"], "rasterize_single": 0,
+            "fused_bias_act": step["epilogue_launches"]}
         if step["k1_launches"] != 3 or step["step"] != 1 or res["device"] != "cuda:0":
             raise AssertionError(f"parallel gloo rank {r}: {step['k1_launches']} K1 launches, "
                                  f"step {step['step']}, {res['device']}")
@@ -2493,8 +2681,16 @@ def spatial_phase(torch, np, dev, smi, work, face, tri, path_launches, keys_of_b
     for r, rr in enumerate(results):
         res = rr["spatial"]
         counts = [res[f"{nd}x{ns}"]["k1"] for nd, ns in SPATIAL_LAYOUTS]
+        epilogue = [res[f"{nd}x{ns}"]["epilogue_launches"] for nd, ns in SPATIAL_LAYOUTS]
         path_launches[f"spatial rank {r}"] = {"rasterize_multi": sum(c[0] for c in counts),
-                                              "rasterize_single": 0}
+                                              "rasterize_single": 0,
+                                              "fused_bias_act": sum(epilogue)}
+        # the mapping's 8 layers a forward run outside the mesh; the banded
+        # synthesis keeps the plain chain (warm-up + SPATIAL_REPS forwards)
+        want = [(SPATIAL_REPS + 1) * 8] * len(SPATIAL_LAYOUTS)
+        if epilogue != want:
+            raise AssertionError(f"spatial rank {r}: {epilogue} epilogue launches in the "
+                                 f"no-grad banded forwards, expected {want}: the mapping's only")
         band_launches += sum(c[1] for c in counts)
         for (nd, ns), c in zip(SPATIAL_LAYOUTS, counts):
             o = res[f"{nd}x{ns}"]
@@ -2558,7 +2754,7 @@ def main() -> int:
     )
     from stylerenderer_tpu_torch.face3d.alignment import render_mean_face
     from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
-    from stylerenderer_tpu_torch.ops import _build
+    from stylerenderer_tpu_torch.ops import _build, fused_act
     from stylerenderer_tpu_torch.ops.rasterize import rasterize
     from stylerenderer_tpu_torch.ops.resize import resize_linear
     from stylerenderer_tpu_torch.ops.rasterize_multi import (
@@ -2573,7 +2769,8 @@ def main() -> int:
     )
 
     kernels = {"rasterize_multi": rasterize_winners_multi,
-               "rasterize_single": rasterize_winners_single}
+               "rasterize_single": rasterize_winners_single,
+               "fused_bias_act": fused_act.fused_bias_act}
     path_launches = {}
 
     def run_path(name, fn):
@@ -2706,6 +2903,9 @@ def main() -> int:
     compare_wins(w1, ref2, "K1 one level against K2's plain version")
     log(f"check: K1 n_levels=1 at {TOP}^2, production mesh B=2: winners and values bit-equal")
 
+    # ---- phase 3c: the styled conv's epilogue kernel ----------------------------
+    ep = epilogue_phase(torch, dev, smi, face, tri, run_path)
+
     # ---- phase 4: the "each" path -------------------------------------------
     gen = GeneratorWithMap(256, 512, 8, dtype=torch.bfloat16, seed=0, device=dev).eval()
     batches = []
@@ -2721,7 +2921,9 @@ def main() -> int:
         images, counts = run_path("each", lambda: [
             gen([z], (vert, norm, tri))[0] for z, vert, norm in batches[1:]])
         elapsed = time.perf_counter() - t0
-    if counts != {"rasterize_multi": FORWARDS, "rasterize_single": 0}:
+    # the epilogue: 13 styled convs, 14 ResBlock activations, 8 mapping layers
+    if counts != {"rasterize_multi": FORWARDS, "rasterize_single": 0,
+                  "fused_bias_act": FORWARDS * (13 + 14 + 8)}:
         raise AssertionError(f"each path: launches {counts} in {FORWARDS} forwards")
     for img in images:
         if tuple(img.shape) != (BATCH, 3, 256, 256):
@@ -2764,7 +2966,8 @@ def main() -> int:
             path, SYNTH_IMAGES, size=256, seed=0, batch=BATCH, device=dev))
         synth_s = time.perf_counter() - t0
         n_batches = -(-SYNTH_IMAGES // BATCH)
-        if n != SYNTH_IMAGES or counts != {"rasterize_multi": 0, "rasterize_single": n_batches}:
+        if n != SYNTH_IMAGES or raster(counts) != {"rasterize_multi": 0,
+                                                   "rasterize_single": n_batches}:
             raise AssertionError(f"synth path: {n} images, launches {counts}")
         with open(path, "rb") as f:
             head = f.read(28)
@@ -2819,7 +3022,7 @@ def main() -> int:
             elapsed = time.perf_counter() - t0
             want = ({"rasterize_multi": DS_FORWARDS, "rasterize_single": 0} if fused
                     else {"rasterize_multi": 0, "rasterize_single": DS_FORWARDS})
-            if counts != want:
+            if raster(counts) != want:
                 raise AssertionError(f"downsample fused={fused}: launches {counts}")
             for img in images:
                 if tuple(img.shape) != (BATCH, 3, 256, 256) or not bool(
@@ -2849,7 +3052,7 @@ def main() -> int:
     tex = torch.rand(face.mean.shape[0] // 3, 3, generator=torch.Generator().manual_seed(5))
     img, counts = run_path("render_mean_face",
                            lambda: render_mean_face(face, tex, tri, hh, ww))
-    if counts != {"rasterize_multi": 0, "rasterize_single": 1}:
+    if raster(counts) != {"rasterize_multi": 0, "rasterize_single": 1}:
         raise AssertionError(f"render_mean_face: launches {counts}")
     v0 = face(torch.zeros(1, face.sigma.shape[0], device=dev))
     dense = rasterize(v0, tex.to(dev)[None], tri, hh, ww, method="dense")[0].cpu().numpy()
@@ -3028,7 +3231,7 @@ def main() -> int:
             "--with_map", "--size", "256", "--sample", "4", "--pics", "1", "--out", tmp,
             "--save_normals"]))
         cli_s = time.perf_counter() - t0
-        if counts != {"rasterize_multi": 1, "rasterize_single": 0}:
+        if raster(counts) != {"rasterize_multi": 1, "rasterize_single": 0}:
             raise AssertionError(f"the CLI's forward launched {counts}")
         size = os.path.getsize(paths[0])
         with open(paths[0], "rb") as f:
@@ -3052,7 +3255,7 @@ def main() -> int:
         _, counts = run_path("cli project", lambda: project_main(
             pngs + ["--ckpt", ckpt, "--iters", "10", "--segments", "2", "--out", out_dir]))
         cli_s = time.perf_counter() - t0
-        if counts != {"rasterize_multi": 10 + 2, "rasterize_single": 0}:
+        if raster(counts) != {"rasterize_multi": 10 + 2, "rasterize_single": 0}:
             raise AssertionError(f"cli project: launches {counts}")
         names = sorted(os.listdir(out_dir))
         if names != ["fit.npz", "mesh_000.obj", "mesh_001.obj", "render.png", "target.png"]:
@@ -3068,7 +3271,7 @@ def main() -> int:
         paths, counts = run_path("cli generate --ckpt", lambda: generate_main([
             "--with_map", "--size", "256", "--sample", "4", "--pics", "1", "--ckpt", ckpt,
             "--out", os.path.join(tmp, "gen")]))
-        if counts != {"rasterize_multi": 1, "rasterize_single": 0}:
+        if raster(counts) != {"rasterize_multi": 1, "rasterize_single": 0}:
             raise AssertionError(f"cli generate --ckpt: launches {counts}")
         with open(paths[0], "rb") as f:
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
@@ -3145,6 +3348,21 @@ def main() -> int:
         "ms_1024": k2_1024["ms"],
         "bound_ms_1024": k2_1024["bound_ms"],
         "plain_ms_1024_image0": k2_1024["plain_ms_image0"],
+    }, {
+        "name": "fused_bias_act",
+        "route": "cuda",
+        "source": "stylerenderer_tpu_torch/csrc/fused_act.cu",
+        "replaces": "stylerenderer_tpu/ops/fused_act.py (left to XLA)",
+        "launches": launches("fused_bias_act"),
+        "max_abs_err": ep["max_abs_err"],
+        "ms": ep["ms"],
+        "plain_ms": ep["plain_ms"],
+        "bound_ms": ep["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ms_512": ep["ms_512"],
+        "plain_ms_512": ep["plain_ms_512"],
+        "bound_ms_512": ep["bound_ms_512"],
     }]}))
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -58,6 +58,7 @@ from stylerenderer_tpu_torch.nn.layers import (
     Upsample,
     reset_parameters,
 )
+from stylerenderer_tpu_torch.ops import fused_act
 from stylerenderer_tpu_torch.ops.fused_act import FusedLeakyReLU
 from stylerenderer_tpu_torch.ops.rasterize import (
     rasterize,
@@ -80,7 +81,15 @@ def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
 
 
 class StyledConv(nn.Module):
-    """Modulated conv, noise and the fused bias-lrelu."""
+    """Modulated conv, noise and the fused bias-lrelu.
+
+    Where ``fused_act.takes_kernel`` holds for the call (on a card, autograd
+    recording nothing, no ``sharded`` mesh active) and the conv computes in
+    a type the kernel takes, everything after the conv (demodulation, FiLM,
+    noise, bias, leaky ReLU, gain) is one ``fused_bias_act_cuda`` launch on
+    the undemodulated conv output; otherwise the layers run one op a
+    term. The rule is applied once, here: the launch raises rather than
+    fall back."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
                  style_dim: int, upsample: bool = False, blur_kernel=(1, 3, 3, 1),
@@ -93,7 +102,19 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(out_channel)
 
     def forward(self, x, style, noise=None, generator=None):
+        if self._fused(x, style, noise):
+            return self._epilogue(x, style, None, noise, generator)
         return self.activate(self.noise(self.conv(x, style), noise, generator))
+
+    def _fused(self, x, *inputs) -> bool:
+        return (self.conv.dtype in fused_act.KERNEL_DTYPES
+                and fused_act.takes_kernel(x, *inputs, *self.parameters()))
+
+    def _epilogue(self, x, style, film, noise, generator):
+        y, demod = self.conv.undemodulated(x, style)
+        return fused_act.fused_bias_act_cuda(
+            y, self.activate.bias, demod, film, self.noise.noise_map(y, noise, generator),
+            self.noise.weight, self.activate.negative_slope, self.activate.scale)
 
 
 class StyledMapConv(StyledConv):
@@ -101,6 +122,8 @@ class StyledMapConv(StyledConv):
     (``x * map[:, 0:1] + map[:, 1:2]``) between the conv and the noise."""
 
     def forward(self, x, style, stylemap, noise=None, generator=None):
+        if self._fused(x, style, stylemap, noise):
+            return self._epilogue(x, style, stylemap, noise, generator)
         x = self.conv(x, style)
         x = x * stylemap[:, 0:1] + stylemap[:, 1:2]
         x = self.noise(x, noise, generator)

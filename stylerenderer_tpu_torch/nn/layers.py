@@ -220,14 +220,7 @@ class ModulatedConv2d(nn.Module):
             self.weight.copy_(torch.randn(self.weight.shape, generator=generator))
 
     def forward(self, x, style):
-        w = self.weight[0] * self.scale  # [out, in, k, k]
-        s = self.modulation(style)  # [B, in]
-        xs = x * s[:, :, None, None].to(x.dtype)
-        demod = None
-        if self.demodulate:
-            w2 = torch.sum(w * w, dim=(2, 3))  # [out, in]
-            demod = torch.rsqrt((s * s) @ w2.t() + self.eps)  # [B, out]
-        ws = w.to(self.dtype)
+        xs, ws, demod = self._modulate(x, style)
         mesh = spatial.active()
         if mesh is not None:
             y = self._band(xs, ws, mesh, demod)
@@ -235,11 +228,39 @@ class ModulatedConv2d(nn.Module):
         if self.upsample:
             y = F.conv_transpose2d(xs.to(self.dtype), ws.transpose(0, 1), stride=2)
             return self.blur(self._demodulate(y, demod))
+        return self._demodulate(self._conv(xs, ws), demod)
+
+    def undemodulated(self, x, style):
+        """-> (y, demod): the conv's output before demodulation (outside a
+        ``sharded`` mesh) and the factor ``[B, out]`` float32 (``None``
+        without demodulation), for an epilogue that applies it. The
+        upsampling conv's blur is applied to ``y`` already: the blur is
+        linear within each ``(b, c)`` plane and ``demod`` is constant on it,
+        so demodulating after the blur is the same function (``forward``
+        demodulates first; the two round differently)."""
+        xs, ws, demod = self._modulate(x, style)
+        if self.upsample:
+            return self.blur(F.conv_transpose2d(xs.to(self.dtype), ws.transpose(0, 1),
+                                                stride=2)), demod
+        return self._conv(xs, ws), demod
+
+    def _modulate(self, x, style):
+        """-> (``x`` scaled by the style, the scaled weight in the compute
+        type, the demodulation factor or ``None``)."""
+        w = self.weight[0] * self.scale  # [out, in, k, k]
+        s = self.modulation(style)  # [B, in]
+        xs = x * s[:, :, None, None].to(x.dtype)
+        demod = None
+        if self.demodulate:
+            w2 = torch.sum(w * w, dim=(2, 3))  # [out, in]
+            demod = torch.rsqrt((s * s) @ w2.t() + self.eps)  # [B, out]
+        return xs, w.to(self.dtype), demod
+
+    def _conv(self, xs, ws):
+        """The plain or downsampling conv of ``xs``, not demodulated."""
         if self.downsample:
-            y = F.conv2d(self.blur(xs).to(self.dtype), ws, stride=2)
-        else:
-            y = F.conv2d(xs.to(self.dtype), ws, padding=self.kernel_size // 2)
-        return self._demodulate(y, demod)
+            return F.conv2d(self.blur(xs).to(self.dtype), ws, stride=2)
+        return F.conv2d(xs.to(self.dtype), ws, padding=self.kernel_size // 2)
 
     def _demodulate(self, y, demod):
         if self.demodulate:
@@ -295,9 +316,14 @@ class NoiseInjection(nn.Module):
             self.weight.zero_()
 
     def forward(self, x, noise=None, generator: torch.Generator | None = None):
-        """Under ``'space'``, ``x`` is a band and ``noise`` (given, or drawn
-        here) the whole map's, of which the band's rows are added: ranks
-        that seed ``generator`` alike draw one map."""
+        return x + self.weight.to(x.dtype) * self.noise_map(x, noise, generator).to(
+            x.device, x.dtype)
+
+    def noise_map(self, x, noise=None, generator: torch.Generator | None = None):
+        """The map added to ``x``: ``noise``, or one drawn here. Under
+        ``'space'``, ``x`` is a band and ``noise`` (given, or drawn here) the
+        whole map's, of which the band's rows are taken: ranks that seed
+        ``generator`` alike draw one map."""
         mesh = spatial.active()
         if noise is None:
             b, _, h, w = x.shape
@@ -306,7 +332,7 @@ class NoiseInjection(nn.Module):
                                 device=generator.device if generator else x.device)
         if mesh is not None:
             noise = noise[:, :, spatial.band_rows(mesh, noise.shape[2])]
-        return x + self.weight.to(x.dtype) * noise.to(x.device, x.dtype)
+        return noise
 
 
 class ConstantInput(nn.Module):

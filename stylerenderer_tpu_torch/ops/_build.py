@@ -8,14 +8,17 @@ changed source rebuilds and an unchanged one loads the library already there.
 
 - ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, K1 and its
   binning passes; ``single``: ``csrc/rasterize_single.cu``, K2 and its
-  binning passes) for Hopper
-  (``sm_90a``), built in parallel by ``build_cuda_libraries()``.
+  binning passes; ``fused_act``: ``csrc/fused_act.cu``, the styled conv's
+  epilogue) for Hopper
+  (``sm_90a``), built in parallel by ``build_cuda_libraries()``, which the
+  first ``library()`` call for any of them runs: a process pays one build,
+  not one per library.
   ``--fmad=false`` keeps every ``a*b+c`` as a rounded multiply and a
   rounded add, as the oracle computes them; the default ``-prec-div=true``
   keeps IEEE division; fast math is never on. ``-Xptxas -v`` reports registers and shared memory
   (``build_log()``).
-- ``g++`` libraries (``multi_host``, ``single_host``) of the same per-candidate
-  math for the CPU tests, ``-ffp-contract=off`` for the same reason; and
+- ``g++`` libraries (``multi_host``, ``single_host``, ``fused_act_host``) of
+  the same per-candidate and per-element math for the CPU tests, ``-ffp-contract=off`` for the same reason; and
   ``srpack`` (``csrc/srpack.cpp``), the SRPack shard reader, with
   ``-pthread``.
 """
@@ -110,6 +113,13 @@ _MULTI_HEADERS = ("rasterize_multi.cuh", "bin_multi.cuh", "bin_passes.cuh")
 _SINGLE_HEADERS = ("rasterize_single.cuh", "bin_single.cuh", "rasterize_multi.cuh",
                    "bin_multi.cuh", "bin_passes.cuh")
 
+# y, out, demod, film_a, film_b, noise, noise_weight, bias; N, C, H, W;
+# film_bs, film_ps; noise_n, noise_h, noise_w, flags, dtype; slope, gain
+_FUSED_ACT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2)
+# N, C, H, W, dtype, vec; out
+_FUSED_ACT_SHAPE = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
 _P, _U32, _U64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64
 _SRPACK = {"srpack_open": ([ctypes.c_char_p], _P),
            "srpack_close": ([_P], None),
@@ -139,6 +149,12 @@ _SPECS = {
     "single_host": ("g++", "rasterize_single_host.cpp", _SINGLE_HEADERS,
                     {"sr_rasterize_single_host": _SINGLE_HOST_ARGS,
                      "sr_bin_single_host": [ctypes.c_void_p] * 5 + _BIN_SINGLE_SHAPE}),
+    "fused_act": ("nvcc", "fused_act.cu", ("fused_act.cuh",),
+                  {"sr_fused_bias_act": _FUSED_ACT_ARGS + _STREAM,
+                   "sr_fused_bias_act_shape": _FUSED_ACT_SHAPE}),
+    "fused_act_host": ("g++", "fused_act_host.cpp", ("fused_act.cuh",),
+                       {"sr_fused_bias_act_host": _FUSED_ACT_ARGS,
+                        "sr_fused_bias_act_shape_host": _FUSED_ACT_SHAPE}),
     "srpack": ("g++", "srpack.cpp", (), _SRPACK, ("-pthread",)),
 }
 CUDA_LIBRARIES = tuple(n for n, spec in _SPECS.items() if spec[0] == "nvcc")
@@ -152,7 +168,17 @@ def _gxx() -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """Build (unless built) and load the library ``name`` of ``_SPECS``."""
+    """Build (unless built) and load the library ``name`` of ``_SPECS``; the
+    first ``nvcc`` library asked for builds them all at once."""
+    if name not in _LIBS:
+        if _SPECS[name][0] == "nvcc":
+            build_cuda_libraries()
+        else:
+            _load(name)
+    return _LIBS[name]
+
+
+def _load(name: str) -> None:
     if name not in _LIBS:
         compiler, source, headers, functions, *extra = _SPECS[name]
         if compiler == "nvcc":
@@ -168,13 +194,14 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         # cached only now: a caller never sees ctypes' default conversions
         _LIBS[name] = lib
-    return _LIBS[name]
 
 
 def build_cuda_libraries() -> None:
-    """Build every Hopper library at once, one ``nvcc`` per source, all
-    started together."""
+    """Build every Hopper library not yet loaded at once, one ``nvcc`` per
+    source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
-        list(pool.map(library, CUDA_LIBRARIES))
+    todo = [n for n in CUDA_LIBRARIES if n not in _LIBS]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            list(pool.map(_load, todo))

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_fused_act as tfa
 from torch_meshes import (
     BAND_CASES, KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins,
     single_case,
@@ -1131,3 +1132,145 @@ def test_cuda_spatial_forward_matches_world1(cuda, tmp_path):
             for i, (a, b) in enumerate(zip(res["g_grads"], gg)):
                 close(a, b / nd, f"{layout} rank {r} G parameter {i}")
             assert res["k1"] == (1, 1), (layout, r, res["k1"])
+
+
+# ---- the styled conv's epilogue kernel (ops/fused_act.py) ----------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", tfa.SYNTH_1024 + tfa.RESBLOCK)
+def test_cuda_fused_bias_act_matches_plain(cuda, c, h, dtype):
+    """The kernel at every (C, H) of the 1024 and 256 px synthesis and of the
+    ResBlocks' maps, B=2, with and without FiLM (a view of a 4-channel map,
+    contiguous or channels-last as the ResBlocks give it), with noise
+    ``[B,1,H,W]``, ``[1,1,H,W]`` and ``[1,1,1,1]``: float32 gives the plain
+    chain's bits on the same ``y``; bfloat16 the host build's bits and the
+    float32 chain's rounded once, within one rounding of the float64
+    oracle. Each call is one launch."""
+    from stylerenderer_tpu_torch.ops.fused_act import (
+        fused_bias_act, fused_bias_act_host, fused_bias_act_ref,
+    )
+
+    for i, (film, noise, last) in enumerate([(f, n, cl) for f in (False, True)
+                                             for n in tfa.NOISE_KINDS
+                                             for cl in ((False, True) if f else (False,))]):
+        a = tfa.inputs(2, c, h, h, dtype, film=film, noise=noise, seed=i, device=cuda)
+        if last:
+            a["film"] = a["film"].contiguous(memory_format=torch.channels_last)
+        what = f"C={c} H={h} {dtype} film={film} channels_last={last} noise={noise}"
+        before = fused_bias_act.launches
+        with torch.no_grad():
+            out = fused_bias_act(**a)
+        torch.cuda.synchronize()
+        assert fused_bias_act.launches == before + 1, what
+        if dtype == torch.float32:
+            assert torch.equal(tfa.bits(out), tfa.bits(fused_bias_act_ref(**a))), what
+        else:
+            host = fused_bias_act_host(**{k: v.cpu() for k, v in a.items()})
+            assert torch.equal(tfa.bits(out.cpu()), tfa.bits(host)), what
+            assert torch.equal(tfa.bits(out), tfa.bits(tfa.rounded_once(**a))), what
+            assert tfa.max_gap(out, *tfa.oracle(**a)) <= 1.0, what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_leaky_relu_forms(cuda, dtype):
+    """The activation alone in the forms the port calls it: the mapping's
+    ``[16, 512]`` (bias on the last axis), a ResBlock conv's channels-last
+    ``[2, 3, 64, 64]`` (kept channels-last), a transposed map (made
+    contiguous first), no bias: float32 bit for bit against the plain chain,
+    bfloat16 against the host build."""
+    from stylerenderer_tpu_torch.ops.fused_act import (
+        fused_bias_act_host, fused_bias_act_ref, fused_leaky_relu,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    y2 = torch.randn(16, 512, generator=g)
+    y4 = torch.randn(2, 3, 64, 64, generator=g)
+    cases = [(y2, torch.randn(512, generator=g), -1),
+             (y4.contiguous(memory_format=torch.channels_last), torch.randn(3, generator=g), 1),
+             (y4.transpose(2, 3), torch.randn(3, generator=g), 1), (y4, None, 1)]
+    for y, b, dim in cases:
+        y = y.to(dtype)
+        with torch.no_grad():
+            out = fused_leaky_relu(y.to(cuda), None if b is None else b.to(cuda), dim=dim)
+        if y.is_contiguous(memory_format=torch.channels_last) and not y.is_contiguous():
+            assert out.is_contiguous(memory_format=torch.channels_last)
+        want = (fused_bias_act_ref(y, b, dim=dim) if dtype == torch.float32
+                else fused_bias_act_host(y.contiguous(), b, dim=dim))
+        assert torch.equal(tfa.bits(out.cpu().contiguous()), tfa.bits(want.contiguous()))
+
+
+def _gar_and_inputs(cuda, size, dtype, batch=2):
+    """``GeneratorWithMap(size, 512, 8)`` with noise strengths 0.1 and
+    activation biases away from 0, and a forward's inputs."""
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
+
+    gen = GeneratorWithMap(size, 512, 8, dtype=dtype, seed=1, device=cuda).eval()
+    gb = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for m in gen.modules():
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.1)
+            if type(m).__name__ == "FusedLeakyReLU":
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gb))
+    face, tri = synthetic_face(24, 48, 8, 4, device=cuda)
+    g = torch.Generator().manual_seed(2)
+    vert = random_apply_pose3D(g, face(face.random_input(batch, g)))
+    z = torch.randn(batch, 512, generator=g).to(cuda)
+    noise = [n.to(cuda) for n in make_noise(size, batch, g)]
+    return gen, ([z], (vert, mesh_point_normal(vert, tri), tri)), noise
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,launches", [(256, 13 + 14 + 8), (1024, 17 + 18 + 8)])
+def test_cuda_gar_forward_takes_fused_epilogue(cuda, monkeypatch, size, launches):
+    """A no-grad bf16 ``GeneratorWithMap(size, 512, 8)`` forward launches the
+    epilogue once per styled conv, ResBlock activation and mapping layer
+    and never the plain chain; its image is the plain path's within the
+    render cell's ``image_rel_l2`` limit (0.07; one rounding against
+    nine). A forward under autograd launches nothing and matches the plain
+    path's image bit for bit."""
+    from stylerenderer_tpu_torch.ops import fused_act
+
+    gen, args, noise = _gar_and_inputs(cuda, size, torch.bfloat16)
+    real = fused_act.takes_kernel
+    with torch.no_grad():
+        monkeypatch.setattr(fused_act, "takes_kernel", lambda *a: False)
+        before = fused_act.fused_bias_act.launches
+        plain = gen(*args, noise=noise)[0].float()
+        assert fused_act.fused_bias_act.launches == before
+        monkeypatch.setattr(fused_act, "takes_kernel", real)
+
+        def refuse(*a, **k):
+            raise AssertionError("a no-grad forward on the card reached the plain chain")
+
+        monkeypatch.setattr(fused_act, "fused_bias_act_ref", refuse)
+        fused = gen(*args, noise=noise)[0].float()
+        torch.cuda.synchronize()
+        assert fused_act.fused_bias_act.launches == before + launches
+    monkeypatch.undo()
+    rel = float((fused - plain).norm() / plain.norm())
+    assert rel < 0.07, rel
+    img = gen(*args, noise=noise)[0]
+    assert fused_act.fused_bias_act.launches == before + launches
+    assert img.requires_grad and torch.equal(img.detach().float(), plain)
+
+
+@pytest.mark.gpu
+def test_cuda_gar_forward_fused_float32_matches_plain(cuda, monkeypatch):
+    """float32, TF32 off: the kernel path's 256 px image is the plain
+    path's to 1e-5 (the kernel gives the chain's bits; the upsampling convs
+    demodulate after their blur)."""
+    from stylerenderer_tpu_torch.ops import fused_act
+
+    gen, args, noise = _gar_and_inputs(cuda, 256, torch.float32)
+    flags = _tf32_off()
+    try:
+        with torch.no_grad():
+            fused = gen(*args, noise=noise)[0]
+            monkeypatch.setattr(fused_act, "takes_kernel", lambda *a: False)
+            plain = gen(*args, noise=noise)[0]
+    finally:
+        _restore_tf32(flags)
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)

@@ -4,7 +4,14 @@
 the same numpy inputs as the JAX ops and as the numpy float64 oracle
 ``upfirdn2d_ref``; f32, atol 1e-5. ``upfirdn2d``'s gradients are held
 against JAX's VJP and checked to second order in float64. NCHW on the port's side, NHWC on JAX's:
-the tests transpose at the boundary."""
+the tests transpose at the boundary.
+
+The styled conv's epilogue kernel (``fused_bias_act``) is held here through
+its host build (g++, the same math, vector width, launch shape and
+indexing): bit for bit against the plain chain in float32; in bfloat16 bit
+for bit against the float32 chain rounded once, and within one rounding of
+a float64 oracle; its dispatch rule; and the
+styled layers' kernel path, with the host build standing in for the card."""
 
 import numpy as np
 import pytest
@@ -22,8 +29,13 @@ from stylerenderer_tpu.ops.upfirdn2d import (
     upsample2d as j_upsample2d,
 )
 
+import torch_fused_act as tfa
+from stylerenderer_tpu_torch.ops import fused_act
 from stylerenderer_tpu_torch.ops.fused_act import (
     FusedLeakyReLU,
+    fused_bias_act,
+    fused_bias_act_host,
+    fused_bias_act_ref,
     fused_leaky_relu,
     scaled_leaky_relu,
 )
@@ -145,3 +157,241 @@ def test_resampling_wrappers_match_jax():
         ref = np.asarray(ref)
         assert _nhwc(out).shape == ref.shape
         np.testing.assert_allclose(_nhwc(out), ref, rtol=0, atol=1e-5)
+
+
+# ---- the styled conv's epilogue (fused_bias_act) -------------------------------
+
+# (N, C, H, W): 16-byte vectors along W, a W that takes none (7x9), many
+# channels on a 4x4 map (the block follows the channels), a 1x1 map
+EPILOGUE_SHAPES = ((2, 5, 8, 8), (2, 3, 7, 9), (3, 512, 4, 4), (2, 4, 16, 16), (1, 6, 1, 1))
+# the terms present: (demod, film, noise)
+EPILOGUE_TERMS = {"bias only": (False, False, None), "demod": (True, False, None),
+                  "film": (False, True, None), "noise batch": (False, False, "batch"),
+                  "noise shared": (False, False, "shared"),
+                  "noise scalar": (False, False, "scalar"), "all": (True, True, "batch"),
+                  "all, shared noise": (True, True, "shared")}
+
+
+@pytest.mark.parametrize("terms", sorted(EPILOGUE_TERMS))
+def test_fused_bias_act_host_bit_equal_in_float32(terms):
+    """float32: the host build gives the plain chain's bits, every shape."""
+    demod, film, noise = EPILOGUE_TERMS[terms]
+    for i, shape in enumerate(EPILOGUE_SHAPES):
+        a = tfa.inputs(*shape, torch.float32, film=film, noise=noise, demod=demod, seed=i)
+        out = fused_bias_act_host(**a)
+        assert torch.equal(tfa.bits(out), tfa.bits(fused_bias_act_ref(**a))), shape
+
+
+@pytest.mark.parametrize("terms", ["bias only", "all", "all, shared noise"])
+def test_fused_bias_act_host_rounds_bfloat16_once(terms):
+    """bfloat16: widened, computed in float32, rounded once: the float32
+    chain's result rounded to bfloat16, bit for bit, and so within one
+    rounding of the float64 oracle (the plain chain rounds every op)."""
+    demod, film, noise = EPILOGUE_TERMS[terms]
+    for i, shape in enumerate(EPILOGUE_SHAPES):
+        a = tfa.inputs(*shape, torch.bfloat16, film=film, noise=noise, demod=demod, seed=i)
+        out = fused_bias_act_host(**a)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(tfa.bits(out), tfa.bits(tfa.rounded_once(**a))), shape
+        assert tfa.max_gap(out, *tfa.oracle(**a)) <= 1.0, shape
+
+
+@pytest.mark.parametrize("noise_dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_fused_bias_act_host_takes_float32_noise_only(noise_dtype):
+    """The kernel reads float32 noise, as every caller makes it: the host
+    build refuses another type; the card's wrapper widens it first."""
+    a = tfa.inputs(2, 4, 8, 8, torch.bfloat16)
+    a["noise"] = a["noise"].to(noise_dtype)
+    with pytest.raises(ValueError, match="noise"):
+        fused_bias_act_host(**a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_act_host_signed_zeros_and_slope(dtype):
+    """Both sides of the slope, signed zeros, infinities and NaN: without a
+    bias -0.0 stays -0.0, with a zero bias it becomes +0.0, as in the plain
+    chain; float32 bit for bit."""
+    v = torch.tensor([0.0, -0.0, 1.5, -1.5, 3e-3, -3e-3, float("inf"), -float("inf"),
+                      float("nan"), 7.0, -7.0, 0.25, -0.25, 1e-30, -1e-30, 2.0])
+    y = v.reshape(1, 1, 4, 4).to(dtype)
+    for bias in (None, torch.zeros(1)):
+        out, ref = fused_bias_act_host(y, bias), fused_bias_act_ref(y, bias)
+        assert torch.equal(torch.signbit(out[~out.isnan()]), torch.signbit(ref[~ref.isnan()]))
+        assert torch.equal(out.isnan(), ref.isnan())
+        if dtype == torch.float32:
+            ok = ~ref.isnan()
+            assert torch.equal(tfa.bits(out)[ok], tfa.bits(ref)[ok])
+    assert bool(torch.signbit(fused_bias_act_host(y, None)[0, 0, 0, 1]))
+    assert not bool(torch.signbit(fused_bias_act_host(y, torch.zeros(1))[0, 0, 0, 1]))
+    # the slope side: -1.5 -> -1.5 * 0.2 * gain, the gain rounded to the dtype
+    gain = float(torch.tensor(2 ** 0.5, dtype=dtype))
+    assert float(fused_bias_act_host(y, None)[0, 0, 0, 3]) == float(
+        torch.tensor(-1.5 * float(torch.tensor(0.2, dtype=torch.float32)) * gain, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_act_host_channels_last(dtype):
+    """The layouts the GAR gives: a channels-last y (the ResBlocks' convs
+    on the pyramid's ``[B, s, s, C]`` maps) with its bias, kept channels-last;
+    FiLM read from a channels-last map: float32 the plain chain's bits,
+    bfloat16 the float32 chain's rounded once."""
+    for i, (n, c, h, w) in enumerate(((2, 3, 8, 8), (2, 4, 7, 9), (1, 3, 16, 16))):
+        g = torch.Generator().manual_seed(i)
+        y = torch.randn(n, c, h, w, generator=g).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        b = torch.randn(c, generator=g)
+        out = fused_bias_act_host(y, b)
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        a = tfa.inputs(n, 5, h, w, dtype, seed=i)
+        a["film"] = torch.randn(n, 4, h, w, generator=g).to(dtype).contiguous(
+            memory_format=torch.channels_last)[:, 2:]
+        fused = fused_bias_act_host(**a)
+        if dtype == torch.float32:
+            assert torch.equal(tfa.bits(out), tfa.bits(fused_bias_act_ref(y, b)))
+            assert torch.equal(tfa.bits(fused), tfa.bits(fused_bias_act_ref(**a)))
+        else:
+            assert torch.equal(tfa.bits(out), tfa.bits(tfa.rounded_once(y, bias=b)))
+            assert torch.equal(tfa.bits(fused), tfa.bits(tfa.rounded_once(**a)))
+
+
+def test_fused_bias_act_host_linear_layers_form():
+    """The mapping network's ``[B, 512]`` with the bias on the last axis
+    (``dim=-1``): the host build gives the plain chain's bits."""
+    g = torch.Generator().manual_seed(0)
+    y, b = torch.randn(16, 512, generator=g), torch.randn(512, generator=g)
+    assert torch.equal(tfa.bits(fused_bias_act_host(y, b, dim=-1)),
+                       tfa.bits(fused_bias_act_ref(y, b, dim=-1)))
+    assert torch.equal(tfa.bits(fused_leaky_relu(y, b, dim=-1)),
+                       tfa.bits(fused_bias_act_ref(y, b, dim=-1)))
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    # (N, C, H, W), dtype -> (V, tx, ty, tiles, chunks, chunk, rows)
+    ((16, 32, 1024, 1024), 1, (8, 256, 1, 512, 1, 32, 0)),  # a block owns 2048 pixels
+    ((16, 64, 512, 512), 1, (8, 256, 1, 128, 1, 64, 0)),
+    ((16, 512, 4, 4), 1, (8, 2, 128, 1, 4, 128, 0)),        # the block follows the channels
+    ((16, 128, 256, 256), 0, (4, 256, 1, 64, 2, 64, 0)),    # chunks fill one wave
+    ((16, 512, 1, 1), 0, (4, 256, 1, 8, 1, 512, 1)),        # the mapping's [B, 512]: a run
+    ((16 * 64 * 64, 3, 1, 1), 1, (8, 256, 1, 96, 1, 3, 1)),  # a channels-last 3-channel map
+])
+def test_fused_bias_act_launch_shape(shape, dtype, want):
+    """The launch shape follows (C, H*W): large maps loop over the
+    channels in a tile of pixels, small ones spread the channels."""
+    import ctypes
+
+    from stylerenderer_tpu_torch.ops._build import library
+
+    out = (ctypes.c_int * 7)()
+    assert library("fused_act_host").sr_fused_bias_act_shape_host(
+        *shape, dtype, 1, ctypes.cast(out, ctypes.c_void_p)) == 0
+    assert tuple(out) == want
+
+
+def test_fused_bias_act_dispatch_rule():
+    """CPU tensors take the plain chain (bit for bit, no launch counted);
+    autograd records when grad mode is on and an input requires grad, and
+    only then."""
+    a = tfa.inputs(2, 4, 8, 8, torch.float32)
+    before = fused_bias_act.launches
+    assert torch.equal(tfa.bits(fused_bias_act(**a)), tfa.bits(fused_bias_act_ref(**a)))
+    assert torch.equal(tfa.bits(fused_leaky_relu(a["y"], a["bias"])),
+                       tfa.bits(fused_bias_act_ref(a["y"], a["bias"])))
+    w = a["bias"].clone().requires_grad_(True)
+    out = fused_bias_act(a["y"], w)
+    assert out.requires_grad and fused_bias_act.launches == before
+    assert not fused_act.takes_kernel(a["y"])
+    assert fused_act.records(a["y"], w) and not fused_act.records(a["y"], None)
+    with torch.no_grad():
+        assert not fused_act.records(a["y"], w)
+    with pytest.raises(ValueError, match="film"):
+        fused_bias_act_host(a["y"], a["bias"], film=a["film"].float()[:, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_act.fused_bias_act_cuda(**a)
+
+
+def test_fused_bias_act_rule_keeps_sharded_layers_plain(monkeypatch):
+    """With the tensors taken for a card's: no grad, the rule takes the
+    kernel; under autograd, or inside a ``sharded`` mesh over more than one
+    band, it does not (a one-band mesh is no mesh)."""
+    import types
+
+    from stylerenderer_tpu_torch.parallel import spatial
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    y, w = torch.ones(2, 3, 4, 4), torch.ones(3, requires_grad=True)
+    with torch.no_grad():
+        assert fused_act.takes_kernel(y, w)
+        for n_space, takes in ((2, False), (1, True)):
+            with spatial.sharded(types.SimpleNamespace(n_space=n_space)):
+                assert fused_act.takes_kernel(y, w) is takes, n_space
+    assert not fused_act.takes_kernel(y, w) and fused_act.takes_kernel(y)
+
+
+@pytest.mark.parametrize("form", ["plain", "upsample", "downsample"])
+def test_modulated_conv_undemodulated_then_demodulated_is_forward(form):
+    """``ModulatedConv2d.undemodulated`` times its ``demod`` is ``forward``:
+    bit for bit for the plain and downsampling convs; for the upsampling
+    conv, whose blur now comes before the demodulation, within float32
+    rounding."""
+    from stylerenderer_tpu_torch.nn.layers import ModulatedConv2d
+
+    conv = ModulatedConv2d(6, 5, 3, 8, upsample=form == "upsample",
+                           downsample=form == "downsample")
+    g = torch.Generator().manual_seed(1)
+    x, style = torch.randn(2, 6, 8, 8, generator=g), torch.randn(2, 8, generator=g)
+    with torch.no_grad():
+        want = conv(x, style)
+        y, demod = conv.undemodulated(x, style)
+    got = y * demod[:, :, None, None]
+    if form == "upsample":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+    assert y.shape == want.shape and demod.shape == (2, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_styled_layers_take_the_epilogue_kernel(monkeypatch, dtype):
+    """``GeneratorWithMap(32, 64, 2)`` with the host build standing in for
+    the card: a no-grad forward launches the epilogue once per styled conv
+    (7), ResBlock activation (8) and mapping layer (2), and its image is the
+    plain path's (float32: to rounding, the upsampling convs demodulating
+    after their blur; bfloat16: the relative L2 of one bfloat16 rounding
+    against nine); a forward under autograd launches nothing and is the plain
+    path, bit for bit."""
+    from stylerenderer_tpu_torch.face3d import (
+        mesh_point_normal, random_apply_pose3D, synthetic_face,
+    )
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
+
+    gen = GeneratorWithMap(32, 64, 2, seed=3, dtype=dtype, device="cpu").eval()
+    with torch.no_grad():
+        for m in gen.modules():
+            if type(m).__name__ == "NoiseInjection":
+                m.weight.fill_(0.3)
+            if type(m).__name__ == "FusedLeakyReLU":
+                m.bias.normal_(0, 0.1, generator=torch.Generator().manual_seed(2))
+    face, tri = synthetic_face(12, 24, 4, 2, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    v = random_apply_pose3D(g, face(face.random_input(2, g)))
+    mesh = (v, mesh_point_normal(v, tri), tri)
+    z, noise = torch.randn(2, 64, generator=g), make_noise(32, 2, g)
+    with torch.no_grad():
+        plain = gen([z], mesh, noise=noise)[0]
+
+    def host_launch(y, bias=None, *rest):
+        fused_bias_act.launches += 1
+        return fused_bias_act_host(y, None if bias is None else bias.float(), *rest)
+
+    monkeypatch.setattr(fused_act, "takes_kernel",
+                        lambda x, *inputs: not fused_act.records(x, *inputs))
+    monkeypatch.setattr(fused_act, "fused_bias_act_cuda", host_launch)
+    before = fused_bias_act.launches
+    with torch.no_grad():
+        fused = gen([z], mesh, noise=noise)[0]
+    assert fused_bias_act.launches == before + 7 + 8 + 2
+    img = gen([z], mesh, noise=noise)[0]
+    assert fused_bias_act.launches == before + 17 and img.requires_grad
+    assert torch.equal(img.detach(), plain)
+    rel = float((fused.double() - plain.double()).norm() / plain.double().norm())
+    assert rel < (1e-6 if dtype == torch.float32 else 0.02), rel
