@@ -6,14 +6,14 @@ this):
 
 The control puts the reference in the program's place, computed one step
 below each precision the configuration states (``reference/lowp.py``), and
-compares it with the reference as a run compares the program: for
+compares it with the reference as a run compares the program; a fault puts
+the reference in the program's place with the fault planted. Each loop
+(``loops/<kind>.py::control_readings``) says how for its kind: for
 generation, the same number of sampled images of a window of
-``--batches`` batches; for inversion, the first three steps. The fault
-``half_batch`` (inversion) puts the reference in the program's place with
-half of the batch left out and each term's mean taken over the rest.
-``--program`` reads the program instead, as a run does (set-up, a window of
-``--seconds``, the check), for the lower end of each limit; every seed in
-one process. One JSON line a seed.
+``--batches`` batches; for inversion, the first three steps, and the fault
+``half_batch``. ``--program`` reads the program instead, as a run does
+(set-up, a window of ``--seconds``, the check), for the lower end of each
+limit; every seed in one process. One JSON line a seed.
 """
 
 from __future__ import annotations
@@ -24,38 +24,16 @@ import os
 
 import torch
 
-from gar_bench import compare, spec
-from gar_bench.common import Reservoir
-from gar_bench.reference.lowp import Precision
+from gar_bench import spec
 
 
 def readings(wl: dict, seed: int, fault: str | None, batches: int, base: str = spec.HERE,
              device=None) -> dict:
     cfg, traffic = spec.config(wl["config"], base), spec.traffic(wl["traffic"], base)
-    device = device or torch.device("cuda", 0)
-    client = spec.loop(traffic["kind"], base).Loop(cfg, traffic, seed, device)
+    loop = spec.loop(traffic["kind"], base)
+    client = loop.Loop(cfg, traffic, seed, device or torch.device("cuda", 0))
     client.inputs()
-    if traffic["kind"] == "render":
-        if fault is not None:
-            raise ValueError("generation has no planted fault here: its fault test alters an image")
-        sample = Reservoir(traffic["images_checked"], seed)
-        for n in range(batches):
-            j = sample.pick(client.batch)
-            sample.offer(lambda: (n, j))
-        tally = compare.RenderTally()
-        low = Precision.below(cfg)
-        for i, j in sample.items:
-            tally.add(*client.reference(i, j, prec=low), *client.reference(i, j))
-        return tally.numbers()
-    ref = client.reference()
-    if fault == "half_batch":
-        other = client.reference(rows=slice(0, client.batch // 2))
-    elif fault is None:
-        other = client.reference(prec=Precision.below(cfg))
-    else:
-        raise ValueError(f"unknown fault {fault!r}")
-    numbers, look = compare.invert_numbers(other, ref)
-    return dict(numbers, look=look)
+    return loop.control_readings(client, traffic, cfg, seed, fault, batches)
 
 
 def program_readings(wl: dict, seed: int, seconds: float, base: str = spec.HERE,

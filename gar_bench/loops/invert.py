@@ -10,11 +10,14 @@ waits for the card.
 
 End-to-end: ``step_ms``, the window over the Adam steps completed in it.
 The check: the first three steps against the reference's
-(``reference/invert.py``) from the same inputs.
+(``reference/invert.py``) from the same inputs. The control: the reference
+one precision below, or with the fault ``half_batch`` (half of the batch
+left out, each term's mean taken over the rest), against the reference.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 import time
@@ -27,8 +30,19 @@ from gar_bench.common import (DTYPES, exact_float32, load_weights, program_flags
                               wrap_layers)
 from gar_bench.reference import gar, geometry
 from gar_bench.reference import invert as ref_invert
+from gar_bench.reference.lowp import Precision
 
 FIRST_STEPS = 3
+# the end-to-end metric that a reader of what every loop provides moves here
+MOVES = "step_ms"
+
+
+def tiny_traffic(t: dict) -> dict:
+    """The traffic of the CPU tests' tiny copy of a cell of this kind."""
+    t = copy.deepcopy(t)
+    t.update(batch=2, segment_steps=2)
+    t["projector"]["mean_latent_draws"] = 64
+    return t
 
 
 class Loop:
@@ -179,3 +193,17 @@ class Loop:
         numbers, look = compare.invert_numbers(dict(self.first, p0=p0), ref)
         print(f"look {json.dumps(look)}", file=sys.stderr)
         return numbers
+
+
+def control_readings(client, traffic, cfg, seed, fault, batches) -> dict:
+    """The control's or the fault's numbers (``control.py``): ``client``
+    holds the inputs."""
+    ref = client.reference()
+    if fault == "half_batch":
+        other = client.reference(rows=slice(0, client.batch // 2))
+    elif fault is None:
+        other = client.reference(prec=Precision.below(cfg))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    numbers, look = compare.invert_numbers(other, ref)
+    return dict(numbers, look=look)

@@ -8,7 +8,9 @@ them, into a pinned host buffer that the client reuses.
 End-to-end: ``images_per_s`` (images on the host over the window) and
 ``latency_p95_ms`` (each batch from the draws to its images on the host).
 The check: a sample of the window's batches drawn from the seed, one image
-of each, against the reference (``reference/render.py``).
+of each, against the reference (``reference/render.py``). The control: the
+same number of images, sampled alike, of the reference one precision below
+against the reference.
 """
 
 from __future__ import annotations
@@ -24,6 +26,15 @@ from gar_bench.common import (DTYPES, Reservoir, exact_float32, load_weights, pr
                               sync, wrap_layers)
 from gar_bench.reference import gar
 from gar_bench.reference import render as ref_render
+from gar_bench.reference.lowp import Precision
+
+# the end-to-end metric that a reader of what every loop provides moves here
+MOVES = "images_per_s"
+
+
+def tiny_traffic(t: dict) -> dict:
+    """The traffic of the CPU tests' tiny copy of a cell of this kind."""
+    return dict(t, batch=2, warmup_batches=1, images_checked=2)
 
 
 class Loop:
@@ -148,3 +159,19 @@ class Loop:
             tally.add([m[None] for m in maps], host[None],
                       *self.reference(i, j))
         return tally.numbers()
+
+
+def control_readings(client, traffic, cfg, seed, fault, batches) -> dict:
+    """The control's numbers (``control.py``): ``client`` holds the inputs;
+    the sample is drawn as a window of ``batches`` batches draws it."""
+    if fault is not None:
+        raise ValueError("generation has no planted fault here: its fault test alters an image")
+    sample = Reservoir(traffic["images_checked"], seed)
+    for n in range(batches):
+        j = sample.pick(client.batch)
+        sample.offer(lambda: (n, j))
+    tally = compare.RenderTally()
+    low = Precision.below(cfg)
+    for i, j in sample.items:
+        tally.add(*client.reference(i, j, prec=low), *client.reference(i, j))
+    return tally.numbers()

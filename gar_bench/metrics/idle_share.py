@@ -4,7 +4,7 @@ copy and set intervals) / window, in percent."""
 LAYER = "device"
 UNIT = "%"
 SOURCE = "device_trace"
-MOVES = {"render": "images_per_s", "invert": "step_ms"}
+MOVES = "loop"  # the end-to-end metric its cell's loop declares
 
 
 def read(run):

@@ -5,13 +5,17 @@ configuration and traffic mix and each metric. The harness finds:
 
 - a configuration ``<config>`` in ``gar_bench/configs/<config>.json``;
 - a traffic mix ``<traffic>`` in ``gar_bench/traffic/<traffic>.json``,
-  whose ``kind`` names the loop ``gar_bench/loops/<kind>.py``;
+  whose ``kind`` names the loop ``gar_bench/loops/<kind>.py``, which holds
+  all that is particular to the kind: the ``Loop`` a run drives, the
+  control's readings (``control_readings``), the CPU tests' tiny traffic
+  (``tiny_traffic``) and the end-to-end metric that a reader of what every
+  loop provides moves in its cells (``MOVES``);
 - a cell's limits of the check in ``gar_bench/limits/<workload>.json``;
 - a per-layer metric ``<name>`` in ``gar_bench/metrics/<name>.py``, else in
   ``gar_bench/metrics/<name before its first dot>.py``.
 
-So a later cell, configuration, traffic mix or metric is a new file and a
-new entry, with no edit to a file that is there.
+So a later cell, configuration, traffic mix, loop kind or metric is a new
+file and a new entry, with no edit to a file that is there.
 """
 
 from __future__ import annotations
@@ -72,6 +76,15 @@ def metric_path(name: str, base: str = HERE) -> str:
 
 def metric(name: str, base: str = HERE):
     return _module(metric_path(name, base), "gar_bench_metric_" + name.replace(".", "_"))
+
+
+def moves(reader, kind: str, base: str = HERE) -> str:
+    """The end-to-end metric that ``reader``'s metric moves in a cell of loop
+    ``kind``: ``reader.MOVES[kind]``, or the loop's own ``MOVES`` where the
+    reader declares ``MOVES = "loop"`` (it reads what every loop provides)."""
+    if reader.MOVES == "loop":
+        return loop(kind, base).MOVES
+    return reader.MOVES[kind]
 
 
 def cell_metrics(bench: dict, section: str, workload_name: str) -> list[dict]:

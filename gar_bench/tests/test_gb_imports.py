@@ -31,8 +31,10 @@ import glob, os, importlib
 import gar_bench, gar_bench.run, gar_bench.control, gar_bench.trace, gar_bench.spec
 import gar_bench.flops, gar_bench.pyramid_work, gar_bench.peaks, gar_bench.inputs
 from gar_bench import spec
-for kind in ('render', 'invert'):
-    spec.loop(kind)
+for p in glob.glob(os.path.join(spec.HERE, 'loops', '*.py')):
+    n = os.path.basename(p)[:-3]
+    if n != '__init__':
+        spec.loop(n)
 for p in glob.glob(os.path.join(spec.HERE, 'metrics', '*.py')):
     n = os.path.basename(p)[:-3]
     if n != '__init__':

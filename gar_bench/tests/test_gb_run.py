@@ -36,7 +36,7 @@ def _run(root, capsys, workload, seed=11):
     return json.loads(cap.out.strip().splitlines()[-1]), cap.err
 
 
-@pytest.mark.parametrize("workload", [tiny.RENDER, tiny.INVERT])
+@pytest.mark.parametrize("workload", tiny.CELLS)
 def test_a_sound_run_is_correct(root, capsys, workload):
     out, err = _run(root, capsys, workload, seed=2**31 + 77)
     assert out["correct"] is True

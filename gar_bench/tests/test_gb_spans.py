@@ -78,7 +78,7 @@ def test_readers_per_unit(trace):
                                                                         units=0)) is None
 
 
-@pytest.mark.parametrize("workload", [tiny.RENDER, tiny.INVERT])
+@pytest.mark.parametrize("workload", tiny.CELLS)
 def test_a_traced_run_reads_the_programs_spans(tmp_path, capsys, monkeypatch, workload):
     root = tiny.layout(tmp_path)
     # the traced window ends in a wait for the card, which the CPU has not
@@ -86,7 +86,10 @@ def test_a_traced_run_reads_the_programs_spans(tmp_path, capsys, monkeypatch, wo
     assert run.main(["--workload", workload, "--seed", "9", "--seconds", "0.2", "--trace", "1"],
                     root=root, device=torch.device("cpu"), base=root) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    got = {name for name, cell in NEW.items() if cell == workload}
+    # the cell's metrics whose readers read the program's spans (``NAMES``)
+    got = {m["name"] for m in spec.cell_metrics(spec.benchmark(root), "per_layer", workload)
+           if hasattr(spec.metric(m["name"], root), "NAMES")}
+    assert {name for name, cell in NEW.items() if cell == workload} <= got
     assert got <= set(out["metrics"]) and out["correct"] is True
     # no device intervals on the CPU: each reads the host's time inside its spans
     assert all(out["metrics"][name]["value"] > 0 for name in got)
