@@ -112,7 +112,7 @@ def _train(args, mesh):
     from stylerenderer_tpu_torch.models import make_noise
     from stylerenderer_tpu_torch.parallel import constrain_batch, replicate, replicated
     from stylerenderer_tpu_torch.supervisors import make_extra_heads
-    from stylerenderer_tpu_torch.train import init_train_state, sample_draws, train_step
+    from stylerenderer_tpu_torch.train import init_train_state, run_step
     from stylerenderer_tpu_torch.train.step import path_batch_size
     from stylerenderer_tpu_torch.utils.checkpoint import (
         latest_step, load_checkpoint, save_checkpoint,
@@ -121,7 +121,7 @@ def _train(args, mesh):
     from stylerenderer_tpu_torch.utils.guards import TrainGuard
     from stylerenderer_tpu_torch.utils.image import save_image_grid
     from stylerenderer_tpu_torch.utils.logging import (
-        MetricsLogger, StepTimer, start_profiler_trace, stop_profiler_trace, trace_ctx,
+        MetricsLogger, StepTimer, start_profiler_trace, stop_profiler_trace,
     )
 
     def say(*a, **kw):
@@ -193,12 +193,9 @@ def _train(args, mesh):
                 tracing = True
             real = constrain_batch(next(loader), mesh, cfg.batch)
             t0 = time.perf_counter()
-            with trace_ctx("train.step", args=str(i)):
-                draws = sample_draws(state.generator, cfg, face, cfg.batch,
-                                     state.g.n_latent, heads)
-                # the step discards a non-finite update itself; the guard
-                # only escalates to a checkpoint restore
-                metrics = train_step(state, real, draws, cfg, face, tri, heads, mesh)
+            # the step discards a non-finite update itself; the guard only
+            # escalates to a checkpoint restore
+            metrics, _ = run_step(state, real, cfg, face, tri, heads, mesh)
             step_ms = (time.perf_counter() - t0) * 1e3
             timer.tick()
             if tracing and i == start_iter + args.profile_steps:

@@ -343,7 +343,8 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
     rows, path_rows = mesh.rows(batch), mesh.rows(path_batch_size(cfg, batch))
     local = shard_draws(draws, rows, path_rows)
     gather = mesh.gather_rows
-    host_steps = _take_backup(state)
+    with trace_ctx("train.backup"):
+        host_steps = _take_backup(state)
     metrics = {}
     zero = torch.zeros((), device=real.device)
 
@@ -445,3 +446,15 @@ def train_step(state: TrainState, real: torch.Tensor, draws: StepDraws, cfg: Tra
             state.nonfinite_count += 1
     metrics["nonfinite_steps"] = state.nonfinite_count
     return metrics
+
+
+def run_step(state: TrainState, real: torch.Tensor, cfg: TrainConfig, face, tri,
+             heads: dict | None = None, mesh: Mesh | None = None):
+    """One training iteration as ``cli.train`` runs it: inside a
+    ``train.step`` span (the state's step number in its ``args``), this
+    step's draws from the state's generator (``sample_draws``), then
+    ``train_step``. -> (metrics, the ``StepDraws``)."""
+    with trace_ctx("train.step", args=str(state.step)):
+        draws = sample_draws(state.generator, cfg, face, cfg.batch, state.g.n_latent,
+                             heads or ())
+        return train_step(state, real, draws, cfg, face, tri, heads, mesh), draws

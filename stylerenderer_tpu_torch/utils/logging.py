@@ -131,6 +131,7 @@ SPANS = {
     "project.forward": "whole forward or step",
     "project.backward": "pyramid backward, synthesis backward",
     "train.step": "training",
+    "train.backup": "training",
     "train.d": "training",
     "train.ada": "training",
     "train.r1": "training",
