@@ -89,7 +89,18 @@ entry points a user calls, and prints what it measured:
   and 512^2 (C=64) in bf16 beside its byte bound, and its launches in one
   no-grad GAR forward at 1024 and 256 px, its image against the plain
   path's; every path below reports its own epilogue launches, and the
-  banded no-grad forwards of phase 4m only the mapping's.
+  banded no-grad forwards of phase 4m only the mapping's;
+- upfirdn2d's kernel (phase 3d, ``csrc/upfirdn2d.cu``): at the render cells'
+  shapes (the 1024 px synthesis's 16 calls at B=16 in bf16, the 256 px
+  synthesis's 12 at B=64 in f32) against its plain version, each call's
+  time alone and the whole forward's launches back to back (both replayed
+  from a CUDA graph) beside the byte bound, the plain version's time and
+  ATen's depthwise ``F.conv2d`` on the stuffed, padded input (the
+  yardstick: the port never calls it on a card), per level and summed,
+  with the launch shape; every call of the inversion and training cells
+  (the adjoints, with their negative pads) in f32 and odd, cropping calls
+  in f32, bf16 and f64 against the plain version; phase 3c's forwards
+  launch it 16 and 12 times, and every path below reports its launches.
 
 K1 is timed at the ``each`` shapes (7 levels, C=3), at the training
 shapes (the 9,024-triangle mesh at B=16 and B=8, 7 levels, C=3) and at
@@ -2074,7 +2085,8 @@ def epilogue_phase(torch, dev, smi, face, tri, run_path):
     res = {}
     with torch.no_grad():
         n, counts = run_path("epilogue checks", bit_checks)
-        if counts != {"rasterize_multi": 0, "rasterize_single": 0, "fused_bias_act": n}:
+        if counts != {"rasterize_multi": 0, "rasterize_single": 0, "fused_bias_act": n,
+                      "upfirdn2d": 0}:
             raise AssertionError(f"epilogue checks: launches {counts}, expected {n} of it")
         log(f"check: epilogue at B=16, every (C, H) of the 1024 px synthesis with and without "
             f"FiLM (channels-last map) and [B,1,H,W] noise, the ResBlocks' channels-last maps "
@@ -2122,6 +2134,9 @@ def epilogue_phase(torch, dev, smi, face, tri, run_path):
             if counts["fused_bias_act"] != want:
                 raise AssertionError(f"{size} px forward: launches {counts}, not {want} of the "
                                      "epilogue")
+            if counts["upfirdn2d"] != {1024: 16, 256: 12}[size]:
+                raise AssertionError(f"{size} px forward: launches {counts}, not 2 of "
+                                     "upfirdn2d a level from 8 px")
             latent = gen.get_latent(z)[:, None, :].repeat(1, gen.n_latent, 1)
             maps = gen.normal_pyramid(mesh)
             syn_ms = cuda_ms(torch, lambda: gen.synthesize(latent, maps, noise), 5)
@@ -2147,6 +2162,147 @@ def epilogue_phase(torch, dev, smi, face, tri, run_path):
             f"events, 5 calls; {smi})")
         del gen, maps, latent, img, plain
     res["max_abs_err"] = max_err
+    return res
+
+
+def upfirdn2d_phase(torch, dev, smi, run_path):
+    """Phase 3d: upfirdn2d's kernel (``ops/upfirdn2d.py``, ``csrc/upfirdn2d.cu``)
+    at the render cells' calls (``tests/torch_upfirdn2d.py``): the 1024 px
+    synthesis's 16 at B=16 in bf16 and the 256 px synthesis's 12 at B=64 in
+    f32. Each call against the plain version (f32 within 1e-5; bf16 the
+    kernel's f32 sums rounded once, within one rounding of the plain
+    version's), one launch; its time alone (its launches replayed from a
+    CUDA graph) beside its byte bound (input read once, output written
+    once, at 3.35 TB/s), the plain version's time and ATen's depthwise
+    ``F.conv2d`` on the stuffed, padded input (``library_ms``, CUDA events);
+    the sums over a forward and the forward's launches back to back (one
+    graph); the launch shape of each level's blur. Then every form the
+    backwards run (``check_backward_forms``). -> the kernel's numbers for
+    the kernels line (the 1024 px forward's; ``_256`` the 256 px one's)."""
+    import ctypes
+
+    import torch.nn.functional as F
+    import torch_upfirdn2d as tu
+
+    from stylerenderer_tpu_torch.ops import _build
+    from stylerenderer_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d_cuda, upfirdn2d_plain
+
+    lib = _build.library("upfirdn2d")
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    res, max_err = {}, 0.0
+    g = torch.Generator(dev).manual_seed(20)
+    for cell, key in (("gar1024.render.b16", ""), ("gar256.render.b64", "_256")):
+        calls, dtype = tu.CELLS[cell]
+        dtype = getattr(torch, dtype)
+        eb = torch.tensor([], dtype=dtype).element_size()
+        args, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+
+        def check_and_time():
+            nonlocal max_err
+            for call in calls:
+                (b, c, h, w), up, down, pad = call
+                x = torch.randn(b, c, h, w, generator=g, device=dev).to(dtype)
+                k = (make_kernel(list(tu.KERNEL)) * (4 if up == 2 else 1)).to(dev)
+                a = (x, k, up, down, pad)
+                args.append(a)
+                out, ref = upfirdn2d_cuda(*a), upfirdn2d_plain(*a)
+                if dtype == torch.bfloat16:
+                    once = upfirdn2d_cuda(x.float(), k, up, down, pad).to(dtype)
+                    if not torch.equal(out.view(torch.int16), once.view(torch.int16)):
+                        raise AssertionError(f"upfirdn2d {call}: not its f32 sums rounded once")
+                    tol = 2 ** -7 * (1 + ref.float().abs())
+                else:
+                    tol = torch.full_like(ref, 1e-5)
+                err = (out.float() - ref.float()).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"upfirdn2d {call}: {float(err.max())} off the plain "
+                                         "version")
+                max_err = max(max_err, float(err.max()))
+                reps = 1 if x.numel() * eb > 1e8 else 10
+                ms = graph_ms(torch, lambda: [upfirdn2d_cuda(*a) for _ in range(reps)], 10) / reps
+                plain_ms = cuda_ms(torch, lambda: upfirdn2d_plain(*a), 5)
+                xp = x
+                if up > 1:
+                    xp = F.pad(x.reshape(b, c, h, 1, w, 1), [0, up - 1, 0, 0, 0, up - 1]).reshape(
+                        b, c, h * up, w * up)
+                xp = F.pad(xp, list(pad))
+                wgt = torch.flip(k, (0, 1)).to(dtype)[None, None].expand(c, 1, 4, 4)
+                lib_ms = cuda_ms(torch, lambda: F.conv2d(xp, wgt, stride=down, groups=c), 5)
+                bound_ms = 1e3 * tu.call_bytes(call, eb) / HBM_BYTES_PER_S
+                shape = (ctypes.c_int * 23)()
+                _, _, oh, ow = tu.out_shape(call)
+                rc = lib.sr_upfirdn2d_shape(b, c, h, w, oh, ow, up, up, down, down, pad[0],
+                                            pad[2], 4, 4, codes[dtype], 1,
+                                            ctypes.cast(shape, ctypes.c_void_p))
+                if rc != 0:
+                    raise AssertionError(f"sr_upfirdn2d_shape: {rc}")
+                log(f"upfirdn2d {cell} {tuple(x.shape)} up {up} down {down} pad {pad}: "
+                    f"{ms:.4f} ms (graph replay), bound {bound_ms:.4f} ms by bytes "
+                    f"({tu.call_bytes(call, eb)} bytes): {100 * bound_ms / ms:.1f}% of it; plain "
+                    f"{plain_ms:.4f} ms, ATen depthwise F.conv2d {lib_ms:.4f} ms; shape: tile "
+                    f"{shape[3] * shape[1]} x {shape[4] * shape[2]} of {shape[5]} planes, "
+                    f"{shape[11]} items on {shape[20]} blocks, {shape[19]} B shared, "
+                    f"{shape[21]} registers, {shape[22]} B local")
+                for name, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                ("bound_ms", bound_ms)):
+                    tot[name] += v
+                del out, ref, xp, wgt
+
+        with torch.no_grad():
+            _, counts = run_path(f"upfirdn2d {cell}", check_and_time)
+            forward_ms = graph_ms(torch, lambda: [upfirdn2d_cuda(*a) for a in args], 10)
+        want = len(calls) * (3 if dtype == torch.bfloat16 else 2)
+        if counts["upfirdn2d"] < want:
+            raise AssertionError(f"upfirdn2d {cell}: launches {counts}")
+        log(f"upfirdn2d {cell}: {len(calls)} calls of a forward, summed: kernel "
+            f"{tot['ms']:.4f} ms alone, {forward_ms:.4f} ms back to back (one graph), bound "
+            f"{tot['bound_ms']:.4f} ms by bytes: {100 * tot['bound_ms'] / forward_ms:.1f}% of it "
+            f"back to back, {100 * tot['bound_ms'] / tot['ms']:.1f}% alone; plain version "
+            f"{tot['plain_ms']:.4f} ms, ATen depthwise F.conv2d {tot['library_ms']:.4f} ms "
+            f"({smi})")
+        res.update({f"{k}{key}": v for k, v in tot.items()})
+        res[f"forward_ms{key}"] = forward_ms
+        del args
+
+    def check_backward_forms():
+        """The forms only backwards and second orders run: every call of the
+        inversion and training cells (the adjoints of the down-2 form and
+        of Upsample, their negative pads) in f32, and the odd sizes and
+        mixed-sign pads of ``tu.EXTRA_CALLS`` in f32, bf16 and f64, against
+        the plain version: f32 within 1e-5, f64 1e-12, bf16 the kernel's
+        f32 sums rounded once. -> (calls, the largest f32 error)."""
+        calls = [(c, torch.float32) for c in dict.fromkeys(
+            tu.CELLS["gar256.invert.b32"][0] + tu.CELLS["gar256gan.train.b16"][0])]
+        calls += [(c, dt) for c in tu.EXTRA_CALLS
+                  for dt in (torch.float32, torch.bfloat16, torch.float64)]
+        worst = 0.0
+        for call, dtype in calls:
+            (b, c, h, w), up, down, pad = call
+            x = torch.randn(b, c, h, w, generator=g, device=dev).to(dtype)
+            k = (make_kernel(list(tu.KERNEL)) * (4 if up == 2 else 1)).to(dev)
+            out, ref = upfirdn2d_cuda(x, k, up, down, pad), upfirdn2d_plain(x, k, up, down, pad)
+            if dtype == torch.bfloat16:
+                once = upfirdn2d_cuda(x.float(), k, up, down, pad).to(dtype)
+                if not torch.equal(out.view(torch.int16), once.view(torch.int16)):
+                    raise AssertionError(f"upfirdn2d {call}: not its f32 sums rounded once")
+                continue
+            err = float((out - ref).abs().max())
+            if not err <= (1e-12 if dtype == torch.float64 else 1e-5):
+                raise AssertionError(f"upfirdn2d {call} {dtype}: {err} off the plain version")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            del x, out, ref
+        return len(calls), worst
+
+    with torch.no_grad():
+        (n_calls, worst), counts = run_path("upfirdn2d backward forms", check_backward_forms)
+    if counts["upfirdn2d"] != n_calls + len(tu.EXTRA_CALLS):
+        raise AssertionError(f"upfirdn2d backward forms: launches {counts} for {n_calls} calls")
+    log(f"upfirdn2d: the inversion's and training's {n_calls - 3 * len(tu.EXTRA_CALLS)} "
+        f"distinct calls (forwards, adjoints) in f32 within {worst:.3g} of the plain version; "
+        f"{len(tu.EXTRA_CALLS)} odd, cropping calls in f32, bf16 (its f32 sums rounded once), "
+        f"f64 within 1e-12; launches {counts['upfirdn2d']}")
+    res["max_abs_err"] = max(max_err, worst)
     return res
 
 
@@ -2446,7 +2602,8 @@ def parallel_phase(torch, np, dev, smi, shard, work, run_path, path_launches, ch
         step = res["step"]
         path_launches[f"parallel gloo rank {r}"] = {
             "rasterize_multi": step["k1_launches"], "rasterize_single": 0,
-            "fused_bias_act": step["epilogue_launches"]}
+            "fused_bias_act": step["epilogue_launches"],
+            "upfirdn2d": step["upfirdn2d_launches"]}
         if step["k1_launches"] != 3 or step["step"] != 1 or res["device"] != "cuda:0":
             raise AssertionError(f"parallel gloo rank {r}: {step['k1_launches']} K1 launches, "
                                  f"step {step['step']}, {res['device']}")
@@ -2682,9 +2839,10 @@ def spatial_phase(torch, np, dev, smi, work, face, tri, path_launches, keys_of_b
         res = rr["spatial"]
         counts = [res[f"{nd}x{ns}"]["k1"] for nd, ns in SPATIAL_LAYOUTS]
         epilogue = [res[f"{nd}x{ns}"]["epilogue_launches"] for nd, ns in SPATIAL_LAYOUTS]
-        path_launches[f"spatial rank {r}"] = {"rasterize_multi": sum(c[0] for c in counts),
-                                              "rasterize_single": 0,
-                                              "fused_bias_act": sum(epilogue)}
+        path_launches[f"spatial rank {r}"] = {
+            "rasterize_multi": sum(c[0] for c in counts), "rasterize_single": 0,
+            "fused_bias_act": sum(epilogue),
+            "upfirdn2d": sum(res[f"{nd}x{ns}"]["upfirdn2d_launches"] for nd, ns in SPATIAL_LAYOUTS)}
         # the mapping's 8 layers a forward run outside the mesh; the banded
         # synthesis keeps the plain chain (warm-up + SPATIAL_REPS forwards)
         want = [(SPATIAL_REPS + 1) * 8] * len(SPATIAL_LAYOUTS)
@@ -2757,6 +2915,7 @@ def main() -> int:
     from stylerenderer_tpu_torch.ops import _build, fused_act
     from stylerenderer_tpu_torch.ops.rasterize import rasterize
     from stylerenderer_tpu_torch.ops.resize import resize_linear
+    from stylerenderer_tpu_torch.ops.upfirdn2d import upfirdn2d
     from stylerenderer_tpu_torch.ops.rasterize_multi import (
         rasterize_winners_multi,
         rasterize_winners_multi_ref,
@@ -2770,7 +2929,8 @@ def main() -> int:
 
     kernels = {"rasterize_multi": rasterize_winners_multi,
                "rasterize_single": rasterize_winners_single,
-               "fused_bias_act": fused_act.fused_bias_act}
+               "fused_bias_act": fused_act.fused_bias_act,
+               "upfirdn2d": upfirdn2d}
     path_launches = {}
 
     def run_path(name, fn):
@@ -2906,6 +3066,9 @@ def main() -> int:
     # ---- phase 3c: the styled conv's epilogue kernel ----------------------------
     ep = epilogue_phase(torch, dev, smi, face, tri, run_path)
 
+    # ---- phase 3d: upfirdn2d's kernel ---------------------------------------------
+    ufd = upfirdn2d_phase(torch, dev, smi, run_path)
+
     # ---- phase 4: the "each" path -------------------------------------------
     gen = GeneratorWithMap(256, 512, 8, dtype=torch.bfloat16, seed=0, device=dev).eval()
     batches = []
@@ -2921,9 +3084,10 @@ def main() -> int:
         images, counts = run_path("each", lambda: [
             gen([z], (vert, norm, tri))[0] for z, vert, norm in batches[1:]])
         elapsed = time.perf_counter() - t0
-    # the epilogue: 13 styled convs, 14 ResBlock activations, 8 mapping layers
+    # the epilogue: 13 styled convs, 14 ResBlock activations, 8 mapping
+    # layers; upfirdn2d: a blur and an Upsample a level from 8 px
     if counts != {"rasterize_multi": FORWARDS, "rasterize_single": 0,
-                  "fused_bias_act": FORWARDS * (13 + 14 + 8)}:
+                  "fused_bias_act": FORWARDS * (13 + 14 + 8), "upfirdn2d": FORWARDS * 12}:
         raise AssertionError(f"each path: launches {counts} in {FORWARDS} forwards")
     for img in images:
         if tuple(img.shape) != (BATCH, 3, 256, 256):
@@ -3363,6 +3527,24 @@ def main() -> int:
         "ms_512": ep["ms_512"],
         "plain_ms_512": ep["plain_ms_512"],
         "bound_ms_512": ep["bound_ms_512"],
+    }, {
+        "name": "upfirdn2d",
+        "route": "cuda",
+        "source": "stylerenderer_tpu_torch/csrc/upfirdn2d.cu",
+        "replaces": "stylerenderer_tpu/ops/upfirdn2d.py (left to XLA)",
+        "launches": launches("upfirdn2d"),
+        "max_abs_err": ufd["max_abs_err"],
+        "ms": ufd["ms"],
+        "forward_ms": ufd["forward_ms"],
+        "plain_ms": ufd["plain_ms"],
+        "bound_ms": ufd["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ufd["library_ms"],
+        "ms_256": ufd["ms_256"],
+        "forward_ms_256": ufd["forward_ms_256"],
+        "plain_ms_256": ufd["plain_ms_256"],
+        "bound_ms_256": ufd["bound_ms_256"],
+        "library_ms_256": ufd["library_ms_256"],
     }]}))
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

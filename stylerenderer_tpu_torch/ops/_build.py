@@ -9,7 +9,7 @@ changed source rebuilds and an unchanged one loads the library already there.
 - ``nvcc`` libraries (``multi``: ``csrc/rasterize_multi.cu``, K1 and its
   binning passes; ``single``: ``csrc/rasterize_single.cu``, K2 and its
   binning passes; ``fused_act``: ``csrc/fused_act.cu``, the styled conv's
-  epilogue) for Hopper
+  epilogue; ``upfirdn2d``: ``csrc/upfirdn2d.cu``, upsample-FIR-downsample) for Hopper
   (``sm_90a``), built in parallel by ``build_cuda_libraries()``, which the
   first ``library()`` call for any of them runs: a process pays one build,
   not one per library.
@@ -17,7 +17,8 @@ changed source rebuilds and an unchanged one loads the library already there.
   rounded add, as the oracle computes them; the default ``-prec-div=true``
   keeps IEEE division; fast math is never on. ``-Xptxas -v`` reports registers and shared memory
   (``build_log()``).
-- ``g++`` libraries (``multi_host``, ``single_host``, ``fused_act_host``) of
+- ``g++`` libraries (``multi_host``, ``single_host``, ``fused_act_host``,
+  ``upfirdn2d_host``) of
   the same per-candidate and per-element math for the CPU tests, ``-ffp-contract=off`` for the same reason; and
   ``srpack`` (``csrc/srpack.cpp``), the SRPack shard reader, with
   ``-pthread``.
@@ -119,6 +120,13 @@ _FUSED_ACT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlo
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2)
 # N, C, H, W, dtype, vec; out
 _FUSED_ACT_SHAPE = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# x, out, taps; N, C, H, W; sb, sc, sh, sw; out_h, out_w, up_x, up_y, down_x,
+# down_y, pad_x0, pad_y0, kh, kw, dtype
+_UPFIRDN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_int] * 11
+# N, C, H, W, out_h, out_w, up_x, up_y, down_x, down_y, pad_x0, pad_y0, kh,
+# kw, dtype, unit_w; out
+_UPFIRDN_SHAPE = [ctypes.c_int] * 16 + [ctypes.c_void_p]
 
 _P, _U32, _U64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64
 _SRPACK = {"srpack_open": ([ctypes.c_char_p], _P),
@@ -155,6 +163,12 @@ _SPECS = {
     "fused_act_host": ("g++", "fused_act_host.cpp", ("fused_act.cuh",),
                        {"sr_fused_bias_act_host": _FUSED_ACT_ARGS,
                         "sr_fused_bias_act_shape_host": _FUSED_ACT_SHAPE}),
+    "upfirdn2d": ("nvcc", "upfirdn2d.cu", ("upfirdn2d.cuh", "fused_act.cuh"),
+                  {"sr_upfirdn2d": _UPFIRDN_ARGS + _STREAM,
+                   "sr_upfirdn2d_shape": _UPFIRDN_SHAPE}),
+    "upfirdn2d_host": ("g++", "upfirdn2d_host.cpp", ("upfirdn2d.cuh", "fused_act.cuh"),
+                       {"sr_upfirdn2d_host": _UPFIRDN_ARGS,
+                        "sr_upfirdn2d_shape_host": _UPFIRDN_SHAPE}),
     "srpack": ("g++", "srpack.cpp", (), _SRPACK, ("-pthread",)),
 }
 CUDA_LIBRARIES = tuple(n for n, spec in _SPECS.items() if spec[0] == "nvcc")

@@ -7,17 +7,23 @@
 4. decimate by ``down``.
 
 Output size per dim: ``(in*up + pad0 + pad1 - kernel) // down + 1``.
-The JAX package does this in one XLA convolution; here it is a reshape for
-the zero-stuffing, ``F.pad`` (which crops on negative pads) and one
-depthwise ``F.conv2d`` whose stride decimates. Layout: NCHW.
+Layout: NCHW. The JAX package does this in one XLA convolution. Here the
+device decides: on a card (float32, bfloat16 or float64) it is one
+hand-written CUDA kernel, ``csrc/upfirdn2d.cu`` (``upfirdn2d_cuda``,
+counted in ``upfirdn2d.launches``): one read of the input and one write of
+the output, ``up=2`` polyphase with no stuffed copy, ``down=2`` computing
+only the kept outputs, sums in float (double for float64) rounded once. On
+the CPU it is the plain version, ``upfirdn2d_plain``: a reshape for the
+zero-stuffing, ``F.pad`` (which crops on negative pads) and one depthwise
+``F.conv2d`` whose stride decimates.
 
 The op is linear in ``x``, and its gradient is again an ``upfirdn2d``
 (``up`` and ``down`` swapped, the kernel flipped, the pads from the
 shapes), written as an ``autograd.Function`` whose backward calls itself.
-So gradients of any order are depthwise forward convolutions: ATen's
-double backward of a grouped convolution runs one convolution per channel
-(4.2 s for 16 x 128 x 256 x 256 on an H100), which the path-length and R1
-penalties would hit in every Blur and Upsample.
+So gradients of any order are forward ``upfirdn2d`` calls, the kernel on a
+card: ATen's double backward of a grouped convolution runs one
+convolution per channel (4.2 s for 16 x 128 x 256 x 256 on an H100), which
+the path-length and R1 penalties would hit in every Blur and Upsample.
 """
 
 from __future__ import annotations
@@ -80,13 +86,16 @@ class _UpFirDn2d(torch.autograd.Function):
     the output gradient by ``down``, pad by ``k - 1 - pad0`` before and what
     restores the input length after, convolve with the flipped kernel,
     decimate by ``up``. The backward calls this Function again, so every
-    order of differentiation stays a depthwise forward convolution."""
+    order of differentiation stays a forward ``upfirdn2d``: the kernel on a
+    card tensor, the plain version on a CPU one."""
 
     @staticmethod
     def forward(ctx, x, kernel, up, down, pad):
         ctx.save_for_backward(kernel)
         ctx.args = (x.shape[2], x.shape[3], up, down, pad)
-        return _upfirdn2d_conv(x, kernel, up, down, pad)
+        if x.is_cuda:
+            return upfirdn2d_cuda(x, kernel, up, down, pad)
+        return upfirdn2d_plain(x, kernel, up, down, pad)
 
     @staticmethod
     def backward(ctx, gy):
@@ -100,7 +109,15 @@ class _UpFirDn2d(torch.autograd.Function):
         return gx, None, None, None, None
 
 
-def _upfirdn2d_conv(x, kernel, up, down, pad):
+upfirdn2d.launches = 0
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+_DTYPE_CODES = {dtype: i for i, dtype in enumerate(KERNEL_DTYPES)}
+
+
+def upfirdn2d_plain(x, kernel, up=1, down=1, pad=(0, 0)):
+    """The plain version: the zero-stuffed, padded input through one
+    depthwise ``F.conv2d`` (what a CPU tensor takes)."""
+    up, down, pad = _as_pair(up), _as_pair(down), _pads(pad)
     (up_x, up_y), (down_x, down_y) = up, down
     pad_x0, pad_x1, pad_y0, pad_y1 = pad
     b, c, h, w = x.shape
@@ -115,6 +132,62 @@ def _upfirdn2d_conv(x, kernel, up, down, pad):
     out = F.conv2d(x, weight.expand(c, 1, kh, kw), stride=(down_y, down_x),
                    groups=c)
     assert out.shape == (b, c, out_h, out_w), (out.shape, (b, c, out_h, out_w))
+    return out
+
+
+def _kernel_args(x, kernel, up, down, pad):
+    """Check the inputs for the kernel or its host build -> (out, taps, the
+    C function's arguments). ``x`` ``[B, C, H, W]`` float32, bfloat16 or
+    float64, any strides; the taps ``kernel`` in float32 (float64 for a
+    float64 ``x``) on ``x``'s device; ``out`` contiguous. Raises on what the
+    kernel does not take."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the kernel takes float32, bfloat16 or float64, got {x.dtype}")
+    if x.ndim != 4 or kernel.ndim != 2 or max(kernel.shape) > 8:
+        raise ValueError(f"the kernel takes an NCHW x and a kernel of at most 8 x 8 taps, got "
+                         f"{tuple(x.shape)} and {tuple(kernel.shape)}")
+    (up_x, up_y), (down_x, down_y) = _as_pair(up), _as_pair(down)
+    pad = _pads(pad)
+    b, c, h, w = x.shape
+    kh, kw = kernel.shape
+    out_h, out_w = _out_size(h, w, kh, kw, (up_x, up_y), (down_x, down_y), pad)
+    taps = kernel.to(x.device, torch.float64 if x.dtype == torch.float64 else torch.float32
+                     ).contiguous()
+    out = torch.empty(b, c, out_h, out_w, dtype=x.dtype, device=x.device)
+    return out, taps, (x.data_ptr(), out.data_ptr(), taps.data_ptr(), b, c, h, w, *x.stride(),
+                       out_h, out_w, up_x, up_y, down_x, down_y, pad[0], pad[2], kh, kw,
+                       _DTYPE_CODES[x.dtype])
+
+
+def upfirdn2d_cuda(x, kernel, up=1, down=1, pad=(0, 0)):
+    """``upfirdn2d``'s kernel on the current stream, counted in
+    ``upfirdn2d.launches``. Raises on a dtype or a tensor it does not take,
+    and when the launch is refused."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    out, taps, args = _kernel_args(x, kernel, up, down, pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
+    if out.numel() == 0:
+        return out
+    lib = library("upfirdn2d")
+    rc = lib.sr_upfirdn2d(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("upfirdn2d launch failed: " + lib.sr_error_string(rc).decode())
+    upfirdn2d.launches += 1
+    return out
+
+
+def upfirdn2d_host(x, kernel, up=1, down=1, pad=(0, 0)):
+    """The kernel's math, tiling and schedule compiled for the host (g++),
+    on CPU tensors: ``upfirdn2d``'s result as the card computes it."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    out, taps, args = _kernel_args(x, kernel, up, down, pad)
+    if x.device.type != "cpu":
+        raise ValueError(f"the host build takes CPU tensors, got {x.device}")
+    if out.numel() and library("upfirdn2d_host").sr_upfirdn2d_host(*args) != 0:
+        raise ValueError("upfirdn2d_host: arguments the kernel does not take")
     return out
 
 

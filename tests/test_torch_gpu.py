@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_fused_act as tfa
+import torch_upfirdn2d as tu
 from torch_meshes import (
     BAND_CASES, KERNEL_CASES, NAN_DEPTH_PIXELS_16, SINGLE_CASES, kernel_case, keys_of_bins,
     single_case,
@@ -28,6 +29,12 @@ from stylerenderer_tpu_torch.face3d import (
     mesh_point_normal, random_apply_pose3D, synthetic_face,
 )
 from stylerenderer_tpu_torch.ops.rasterize import rasterize, rasterize_pyramid_fused
+from stylerenderer_tpu_torch.ops.upfirdn2d import (
+    make_kernel,
+    upfirdn2d,
+    upfirdn2d_cuda,
+    upfirdn2d_plain,
+)
 from stylerenderer_tpu_torch.ops.rasterize_multi import (
     build_bins_multi,
     launch_bin_multi,
@@ -290,7 +297,8 @@ def _lockstep(monkeypatch, card_state, cpu_states, cfg, face, face_card, tri, re
     rounding into parameter differences of ``lr``), so every loss and
     gradient is taken at the same parameters. -> (card metrics, per CPU
     state: (its metrics, [(card gradients, its gradients)] per update)).
-    K1 launches three times on the card."""
+    K1 launches three times on the card, and upfirdn2d's kernel takes every
+    blur, adjoint and second order of the card's step."""
     import stylerenderer_tpu_torch.train.step as step_mod
     from stylerenderer_tpu_torch.train import train_step
 
@@ -315,11 +323,13 @@ def _lockstep(monkeypatch, card_state, cpu_states, cfg, face, face_card, tri, re
     out = []
     try:
         monkeypatch.setattr(step_mod, "_adam_step", on_card)
-        before = rasterize_winners_multi.launches
+        before, ups = rasterize_winners_multi.launches, upfirdn2d.launches
         cuda = face_card.device
         m_card = train_step(card_state, real.to(cuda), _to(draws, cuda), cfg, face_card,
                             tri.to(cuda))
         assert rasterize_winners_multi.launches == before + 3
+        # every blur and its adjoints, R1's and the path term's second order too
+        assert upfirdn2d.launches > ups
         for st in cpu_states:
             cpu = []
             monkeypatch.setattr(step_mod, "_adam_step", following(cpu))
@@ -399,16 +409,33 @@ def test_cuda_train_step_float32_matches_cpu_float64(cuda, monkeypatch):
 
 def _record_input_types(monkeypatch):
     """Record the device and input type of every ``F.conv2d``,
-    ``F.conv_transpose2d`` and ``F.linear`` call -> the list it fills."""
+    ``F.conv_transpose2d``, ``F.linear`` and ``upfirdn2d`` call -> the list
+    it fills. ``upfirdn2d`` is one op on either device (the kernel on the
+    card, the plain version's depthwise ``F.conv2d`` on the CPU), so the
+    convolutions inside it are not recorded apart."""
+    import importlib
+
     import torch.nn.functional as F
 
-    seen = []
+    ufd = importlib.import_module("stylerenderer_tpu_torch.ops.upfirdn2d")
+    seen, inside = [], []
     for name in ("conv2d", "conv_transpose2d", "linear"):
         def call(x, *args, _fn=getattr(F, name), _name=name, **kwargs):
-            seen.append((x.device.type, _name, x.dtype))
+            if not inside:
+                seen.append((x.device.type, _name, x.dtype))
             return _fn(x, *args, **kwargs)
 
         monkeypatch.setattr(F, name, call)
+    for name in ("upfirdn2d_cuda", "upfirdn2d_plain"):
+        def op(x, *args, _fn=getattr(ufd, name)):
+            seen.append((x.device.type, "upfirdn2d", x.dtype))
+            inside.append(x)
+            try:
+                return _fn(x, *args)
+            finally:
+                inside.pop()
+
+        monkeypatch.setattr(ufd, name, op)
     return seen
 
 
@@ -1274,3 +1301,83 @@ def test_cuda_gar_forward_fused_float32_matches_plain(cuda, monkeypatch):
     finally:
         _restore_tf32(flags)
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+@pytest.mark.parametrize("cell", sorted(tu.CELLS))
+def test_cuda_upfirdn2d_matches_plain(cuda, cell, dtype):
+    """upfirdn2d's kernel at every call a cell runs (forward, adjoints; a
+    second order takes the forward forms again) and at tu.EXTRA_CALLS'
+    negative pads, in bfloat16, float32 and float64 (B=2), against the
+    plain version: float32 within 1e-5,
+    float64 1e-12, bfloat16 within one rounding and bit-equal to the
+    kernel's float32 sums rounded once; channels-last and sliced inputs give
+    the contiguous input's bits; each call one launch."""
+    calls = list(dict.fromkeys(tu.CELLS[cell][0]))
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(0)
+    for call in calls + tu.EXTRA_CALLS:
+        (b, c, h, w), up, down, pad = call
+        b = 2 if dt == torch.float64 else b
+        x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dt)
+        k = (make_kernel(list(tu.KERNEL)) * (4 if up == 2 else 1)).to(cuda)
+        before = upfirdn2d.launches
+        out = upfirdn2d_cuda(x, k, up, down, pad)
+        assert upfirdn2d.launches == before + 1
+        ref = upfirdn2d_plain(x, k, up, down, pad)
+        assert out.shape == ref.shape and out.is_contiguous(), call
+        if dt == torch.bfloat16:
+            once = upfirdn2d_cuda(x.float(), k, up, down, pad).to(torch.bfloat16)
+            assert torch.equal(out.view(torch.int16), once.view(torch.int16)), call
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -7)
+        else:
+            tol = 1e-12 if dt == torch.float64 else 1e-5
+            torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        if dt == torch.float32 and c > 3:
+            xs = torch.randn(b, c, h, w + 5, generator=g, device=cuda)[..., 2:w + 2]
+            want = upfirdn2d_cuda(xs.contiguous(), k, up, down, pad)
+            for view in (xs, xs.contiguous(memory_format=torch.channels_last)):
+                assert torch.equal(upfirdn2d_cuda(view, k, up, down, pad), want), call
+        del x, out, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,launches", [(256, 12), (1024, 16)])
+def test_cuda_gar_forward_takes_upfirdn2d_kernel(cuda, monkeypatch, size, launches):
+    """A no-grad bf16 ``GeneratorWithMap(size, 512, 8)`` forward launches
+    upfirdn2d's kernel twice a level from 8 px (the upsampling conv's blur,
+    ToRGB's Upsample) and never reaches the plain version."""
+    gen, args, noise = _gar_and_inputs(cuda, size, torch.bfloat16)
+
+    def refuse(*a, **k):
+        raise AssertionError("a card tensor reached upfirdn2d's plain version")
+
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module("stylerenderer_tpu_torch.ops.upfirdn2d"),
+                        "upfirdn2d_plain", refuse)
+    with torch.no_grad():
+        before = upfirdn2d.launches
+        img = gen(*args, noise=noise)[0]
+        torch.cuda.synchronize()
+    assert upfirdn2d.launches == before + launches
+    assert bool(torch.isfinite(img.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_code", [0, 1, 2])
+def test_cuda_upfirdn2d_launch_shape_is_the_host_builds(cuda, dtype_code):
+    """At every call of the four cells and ``tu.EXTRA_CALLS``, the launch
+    shape the card works out (plane packing from the blocks it measures
+    resident) is the host build's, whose fixed block count is an H100's:
+    the CPU tests' tiling is the card's."""
+    from stylerenderer_tpu_torch.ops._build import library
+
+    card = library("upfirdn2d").sr_upfirdn2d_shape
+    host = library("upfirdn2d_host").sr_upfirdn2d_shape_host
+    calls = [c for cell in sorted(tu.CELLS) for c in tu.CELLS[cell][0]] + tu.EXTRA_CALLS
+    for call in dict.fromkeys(calls):
+        for unit_w in (1, 0):
+            assert (tu.launch_shape(card, call, dtype_code, unit_w)
+                    == tu.launch_shape(host, call, dtype_code, unit_w)), call

@@ -6,12 +6,21 @@ the same numpy inputs as the JAX ops and as the numpy float64 oracle
 against JAX's VJP and checked to second order in float64. NCHW on the port's side, NHWC on JAX's:
 the tests transpose at the boundary.
 
+``upfirdn2d``'s kernel (``csrc/upfirdn2d.cu``) is held here through its host
+build (g++, the same math, tiling, launch shape and indexing): against the
+float64 oracle and the plain version in float32 and float64, in bfloat16
+equal to its own float32 sums rounded once, on strided inputs, at the forms
+the benchmark's cells run and their adjoints; its gradients to second order
+and the GAR's forward with the host build standing in for the card.
+
 The styled conv's epilogue kernel (``fused_bias_act``) is held here through
 its host build (g++, the same math, vector width, launch shape and
 indexing): bit for bit against the plain chain in float32; in bfloat16 bit
 for bit against the float32 chain rounded once, and within one rounding of
 a float64 oracle; its dispatch rule; and the
 styled layers' kernel path, with the host build standing in for the card."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -30,6 +39,7 @@ from stylerenderer_tpu.ops.upfirdn2d import (
 )
 
 import torch_fused_act as tfa
+import torch_upfirdn2d as tu
 from stylerenderer_tpu_torch.ops import fused_act
 from stylerenderer_tpu_torch.ops.fused_act import (
     FusedLeakyReLU,
@@ -44,10 +54,15 @@ from stylerenderer_tpu_torch.ops.upfirdn2d import (
     downsample2d,
     make_kernel,
     upfirdn2d,
+    upfirdn2d_cuda,
+    upfirdn2d_host,
+    upfirdn2d_plain,
     upfirdn2d_ref,
     upsample2d,
 )
 from torch_threads import _one_thread  # noqa: F401
+
+ufd_mod = importlib.import_module("stylerenderer_tpu_torch.ops.upfirdn2d")
 
 
 def _rand(shape, seed=0):
@@ -157,6 +172,212 @@ def test_resampling_wrappers_match_jax():
         ref = np.asarray(ref)
         assert _nhwc(out).shape == ref.shape
         np.testing.assert_allclose(_nhwc(out), ref, rtol=0, atol=1e-5)
+
+
+# ---- upfirdn2d's kernel through its host build --------------------------------
+
+def _forms():
+    """The forms the cells run (``torch_upfirdn2d``), cut to 2 x 5 planes at
+    the 8 and 32 px levels, and their adjoints: G's blur on the transposed
+    conv's 2H+1 maps, ToRGB's Upsample, D's blurs with pads (2, 2) and
+    (1, 1) (odd outputs), ``Downsample``; the adjoints' pads are negative
+    where the forward's sizes do not divide. -> {id: (shape, up, down, pad)}."""
+    calls = tu.synthesis_calls(32, 2)[::4] + tu.synthesis_calls(32, 2)[1:2]
+    calls += tu.discriminator_calls(16, 2)[:2]
+    calls += [((2, 5, 17, 17), 1, 2, (1, 1, 1, 1)), ((2, 5, 9, 11), 1, 2, (1, 1, 1, 1))]
+    calls = [((b, min(c, 5), h, w), up, down, pad) for (b, c, h, w), up, down, pad in calls]
+    forms = {}
+    for call in calls + [tu.adjoint(c) for c in calls]:
+        (b, c, h, w), up, down, pad = call
+        forms[f"{h}x{w}_up{up}_down{down}_pad{'_'.join(map(str, pad))}"] = call
+    return forms
+
+
+UPFIRDN_FORMS = _forms()
+
+
+def _host_cases():
+    """(id, x shape, taps, up, down, pad): ``UPFIRDN_CASES`` with random 2-D
+    taps, and the cells' forms with ``make_kernel([1, 3, 3, 1])`` (an outer
+    product: the kernel's separable sums) and with 2-D taps (tap by tap)."""
+    cases = []
+    for i, (in_h, in_w, kh, kw, up, down, pad) in enumerate(UPFIRDN_CASES):
+        cases.append((f"case{i}", (2, 3, in_h, in_w), ("rand", kh, kw), up, down, pad))
+    for name, (shape, up, down, pad) in UPFIRDN_FORMS.items():
+        cases.append((f"{name}_1d", shape, ("1331", up), up, down, pad))
+        cases.append((f"{name}_2d", shape, ("rand", 4, 4), up, down, pad))
+    return cases
+
+
+def _taps(spec):
+    if spec[0] == "1331":
+        return make_kernel([1, 3, 3, 1]) * (4 if spec[1] == 2 else 1)
+    return torch.from_numpy(_rand(spec[1:], seed=1))
+
+
+@pytest.mark.parametrize("case", _host_cases(), ids=lambda c: c[0])
+def test_upfirdn2d_host_matches_plain_and_oracle(case):
+    """float32 within 1e-5 of the float64 oracle and of the plain version,
+    float64 within 1e-12 of the oracle; bfloat16 bit-equal to the kernel's
+    float32 sums of the same inputs rounded once."""
+    _, shape, spec, up, down, pad = case
+    x = torch.from_numpy(_rand(shape))
+    k = _taps(spec)
+    out = upfirdn2d_host(x, k, up, down, pad)
+    oracle = upfirdn2d_ref(x.numpy(), k.numpy(), up, down, pad)
+    assert out.shape == oracle.shape and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), oracle, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, upfirdn2d_plain(x, k, up, down, pad), rtol=0, atol=1e-5)
+    out64 = upfirdn2d_host(x.double(), k.double(), up, down, pad)
+    np.testing.assert_allclose(out64.numpy(), upfirdn2d_ref(x.double().numpy(),
+                                                             k.double().numpy(), up, down, pad),
+                               rtol=0, atol=1e-12)
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(upfirdn2d_host(xb, k, up, down, pad).view(torch.int16),
+                       upfirdn2d_host(xb.float(), k, up, down, pad).to(torch.bfloat16)
+                       .view(torch.int16))
+
+
+@pytest.mark.parametrize("name", sorted(UPFIRDN_FORMS))
+def test_upfirdn2d_host_takes_strides_as_given(name):
+    """A channels-last map, a column slice and a transposed view (the
+    strided rows gathered, not bulk-copied) give the contiguous input's
+    bits."""
+    shape, up, down, pad = UPFIRDN_FORMS[name]
+    b, c, h, w = shape
+    x = torch.from_numpy(_rand((b, c, h, w + 3)))[..., 1:w + 1]
+    k = _taps(("1331", up))
+    want = upfirdn2d_host(x.contiguous(), k, up, down, pad)
+    for view in (x, x.contiguous(memory_format=torch.channels_last),
+                 x.transpose(2, 3).contiguous().transpose(2, 3)):
+        assert torch.equal(upfirdn2d_host(view, k, up, down, pad), want)
+
+
+def _shape(call, dtype_code=1, unit_w=1, kh=4, kw=4):
+    from stylerenderer_tpu_torch.ops._build import library
+
+    return tu.launch_shape(library("upfirdn2d_host").sr_upfirdn2d_shape_host, call, dtype_code,
+                           unit_w, kh, kw)
+
+
+def test_upfirdn2d_launch_shape():
+    """The tiling follows the plane: a 1024 px level's blur takes 128 x 32
+    output tiles of one plane (32 x 8 threads of 4 x 4 outputs), bulk
+    copies and vector stores; the 8 px level's 8192 planes share items, 15
+    of them, leaving 547 items; the upsample's tiles are 256 x 32; an odd
+    pad moves tile 0 to -1 and takes scalar stores; a channels-last map is
+    gathered, planes first; other geometries take one output a thread."""
+    s = _shape(((16, 32, 1025, 1025), 1, 1, (1, 1, 1, 1)))
+    assert (s["kind"], s["tx"], s["ty"], s["rx"], s["ry"], s["tp"]) == (0, 32, 8, 4, 4, 1)
+    assert (s["tiles_x"], s["tiles_y"], s["items"], s["in_w"], s["in_h"]) == (8, 32, 131072,
+                                                                              131, 35)
+    assert (s["pitch"], s["raw_pitch"], s["bulk"], s["vec"]) == (132, 304, 1, 1)
+    assert s["smem"] <= 48 * 1024
+    s = _shape(((16, 512, 9, 9), 1, 1, (1, 1, 1, 1)))
+    assert (s["tx"], s["ty"], s["tp"], s["groups"], s["items"]) == (2, 2, 15, 547, 547)
+    s = _shape(((16, 3, 512, 512), 2, 1, (2, 1, 2, 1)))
+    assert (s["kind"], s["tx"] * s["rx"], s["ty"] * s["ry"], s["sx"], s["vec"]) == (1, 256, 32,
+                                                                                    0, 1)
+    s = _shape(((2, 4, 64, 64), 2, 1, (1, 2, 1, 2)))
+    assert (s["kind"], s["sx"], s["sy"], s["vec"]) == (1, -1, -1, 0)
+    s = _shape(((16, 128, 256, 256), 1, 2, (1, 1, 1, 1)))
+    assert (s["kind"], s["rx"], s["ry"], s["in_w"]) == (2, 2, 4, 130)
+    assert _shape(((16, 128, 256, 256), 1, 1, (2, 2, 2, 2)), unit_w=0)["bulk"] == 0
+    s = _shape(((2, 3, 12, 10), 1, 3, (2, 1, 2, 1)))
+    assert (s["kind"], s["rx"], s["ry"], s["vec"]) == (3, 1, 1, 0)
+    assert _shape(((2, 3, 8, 8), 1, 1, (1, 1, 1, 1)), dtype_code=2)["pitch"] % 4 == 0
+
+
+@pytest.mark.parametrize("name", sorted(UPFIRDN_FORMS)[::2])
+def test_upfirdn2d_gradients_through_host_build(monkeypatch, name):
+    """With the host build standing in for the card at every order
+    (``_UpFirDn2d`` calls itself in its backward), float64 first and second
+    derivatives pass ``gradcheck`` and equal the plain path's."""
+    shape, up, down, pad = UPFIRDN_FORMS[name]
+    x = torch.from_numpy(_rand((1, 2) + shape[2:])).double()
+    k = _taps(("1331", up)).double()
+    ct = torch.from_numpy(_rand((1, 2) + tu.out_shape(((1, 2) + shape[2:], up, down, pad))[2:],
+                                seed=2)).double()
+
+    def grads():
+        xp = x.clone().requires_grad_(True)
+        y = upfirdn2d(xp, k, up, down, pad)
+        (gx,) = torch.autograd.grad((y * y * ct).sum(), xp, create_graph=True)
+        (ggx,) = torch.autograd.grad((gx * gx).sum(), xp)
+        return gx.detach(), ggx
+
+    plain = grads()
+    calls = []
+
+    def host(*args):
+        calls.append(args[0].shape)
+        return upfirdn2d_host(*args)
+
+    monkeypatch.setattr(ufd_mod, "upfirdn2d_plain", host)
+    kernel = grads()
+    assert len(calls) >= 3  # the forward, its adjoint, and the adjoint's own backward
+    for a, b in zip(kernel, plain):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+    def f(v):
+        return upfirdn2d(v, k, up, down, pad)
+
+    xp = x.clone().requires_grad_(True)
+    assert torch.autograd.gradcheck(f, (xp,), fast_mode=True)
+    assert torch.autograd.gradgradcheck(f, (xp,), fast_mode=True)
+
+
+def test_upfirdn2d_kernel_refuses_what_it_does_not_take():
+    """The card path takes float32, bfloat16 and float64 and raises on any
+    other type (before it looks at the device), on a CPU tensor and on a
+    kernel of more than 8 taps; a CPU tensor takes the plain version, bit
+    for bit, and launches nothing."""
+    k = make_kernel([1, 3, 3, 1])
+    x = torch.from_numpy(_rand((1, 2, 8, 8)))
+    for dtype in (torch.float16, torch.int32):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+            upfirdn2d_cuda(x.to(dtype), k, pad=(1, 1))
+        with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+            upfirdn2d_host(x.to(dtype), k, pad=(1, 1))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        upfirdn2d_cuda(x, k, pad=(1, 1))
+    with pytest.raises(ValueError, match="8 x 8 taps"):
+        upfirdn2d_host(x, torch.ones(9, 9), pad=(4, 4))
+    before = upfirdn2d.launches
+    assert torch.equal(upfirdn2d(x, k, pad=(1, 2)), upfirdn2d_plain(x, k, pad=(1, 2)))
+    assert upfirdn2d.launches == before
+
+
+def test_gar_forward_through_upfirdn2d_host_build(monkeypatch):
+    """``GeneratorWithMap(32, 64, 2)`` with the host build standing in for
+    the card: a no-grad forward calls it twice a level from 8 px (the
+    upsampling conv's blur, ToRGB's Upsample: 6 at 32 px), and its image is
+    the plain path's to float32 rounding."""
+    from stylerenderer_tpu_torch.face3d import (
+        mesh_point_normal, random_apply_pose3D, synthetic_face,
+    )
+    from stylerenderer_tpu_torch.models import GeneratorWithMap, make_noise
+
+    gen = GeneratorWithMap(32, 64, 2, seed=3, device="cpu").eval()
+    face, tri = synthetic_face(12, 24, 4, 2, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    v = random_apply_pose3D(g, face(face.random_input(2, g)))
+    mesh = (v, mesh_point_normal(v, tri), tri)
+    z, noise = torch.randn(2, 64, generator=g), make_noise(32, 2, g)
+    with torch.no_grad():
+        plain = gen([z], mesh, noise=noise)[0]
+    calls = []
+
+    def host(*args):
+        calls.append(tuple(args[0].shape))
+        return upfirdn2d_host(*args)
+
+    monkeypatch.setattr(ufd_mod, "upfirdn2d_plain", host)
+    with torch.no_grad():
+        img = gen([z], mesh, noise=noise)[0]
+    assert len(calls) == 6, calls
+    rel = float((img.double() - plain.double()).norm() / plain.double().norm())
+    assert rel < 1e-6, rel
 
 
 # ---- the styled conv's epilogue (fused_bias_act) -------------------------------

@@ -291,13 +291,14 @@ def _stddev(mesh, spec, device):
 
 
 def _step(mesh, spec, device):
-    """One whole step on the rank's rows: metrics, K1's and the epilogue
-    kernel's launches, the step's host time and its collectives' (each timed alone); with
+    """One whole step on the rank's rows: metrics, K1's, the epilogue
+    kernel's and upfirdn2d's launches, the step's host time and its collectives' (each timed alone); with
     ``spec["record"]``, each update's records and the parameters after it
     (``"params"``: without the gradients, on rank 0 only)."""
     from stylerenderer_tpu_torch.face3d import synthetic_face
     from stylerenderer_tpu_torch.ops.fused_act import fused_bias_act
     from stylerenderer_tpu_torch.ops.rasterize_multi import rasterize_winners_multi
+    from stylerenderer_tpu_torch.ops.upfirdn2d import upfirdn2d
     from stylerenderer_tpu_torch.train import train_step
 
     cfg, st = make_state(spec, device)
@@ -306,7 +307,7 @@ def _step(mesh, spec, device):
     real = real[mesh.rows(real.shape[0])]
     mode = spec.get("record", True)
     record = mode is True or (mode == "params" and mesh.rank == 0)
-    rasterize_winners_multi.launches = fused_bias_act.launches = 0
+    rasterize_winners_multi.launches = fused_bias_act.launches = upfirdn2d.launches = 0
     totals, undo = timed_collectives(device)
     t0 = time.perf_counter()
     try:
@@ -323,6 +324,7 @@ def _step(mesh, spec, device):
            "mean_path_length": float(st.mean_path_length), "step": st.step,
            "k1_launches": rasterize_winners_multi.launches,
            "epilogue_launches": fused_bias_act.launches,
+           "upfirdn2d_launches": upfirdn2d.launches,
            "step_ms": (time.perf_counter() - t0) * 1e3, "collectives": dict(totals)}
     if record:
         out.update(records=records, g=_cpu(st.g.parameters()), d=_cpu(st.d.parameters()),
@@ -493,16 +495,17 @@ def _layers_check(mesh, device):
 def _time_forward(g, styles, face, noise, mesh, n, device):
     """The GAR forward on ``mesh`` without gradient: its mean ms over ``n``
     after one warm-up (host clock, the device synchronized around) and the
-    epilogue kernel's launches in them, then one more with every collective
-    timed alone."""
+    epilogue kernel's and upfirdn2d's launches in them, then one more with
+    every collective timed alone."""
     from stylerenderer_tpu_torch.ops.fused_act import fused_bias_act
+    from stylerenderer_tpu_torch.ops.upfirdn2d import upfirdn2d
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     with torch.no_grad():
-        fused_bias_act.launches = 0
+        fused_bias_act.launches = upfirdn2d.launches = 0
         g(styles, face, noise=noise, device_mesh=mesh)
         mesh.barrier()
         sync()
@@ -511,14 +514,15 @@ def _time_forward(g, styles, face, noise, mesh, n, device):
             g(styles, face, noise=noise, device_mesh=mesh)
         sync()
         ms = (time.perf_counter() - t0) * 1e3 / n
-        launches = fused_bias_act.launches
+        launches, ups = fused_bias_act.launches, upfirdn2d.launches
         mesh.barrier()
         totals, undo = timed_collectives(device)
         try:
             g(styles, face, noise=noise, device_mesh=mesh)
         finally:
             undo()
-    return {"forward_ms": ms, "epilogue_launches": launches, "collectives": dict(totals)}
+    return {"forward_ms": ms, "epilogue_launches": launches, "upfirdn2d_launches": ups,
+            "collectives": dict(totals)}
 
 
 SCENARIOS = {"helpers": _helpers, "stddev": _stddev, "step": _step, "screen": _screen,
